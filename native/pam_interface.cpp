@@ -1,6 +1,6 @@
-// pam_tpu native host-side data plane: the GCM-facing API.
+// pam_jax native host-side data plane: the GCM-facing API.
 //
-// TPU-native equivalent of the reference's pam_interface layer
+// Equivalent of the reference's pam_interface layer
 // (pam_core/pam_interface/{pam_interface.h, pam_interface_extern_c.cpp} and
 // the host DataManager, pam_core/DataManager.h): a named, dimension-checked
 // host array registry with zero-copy aliasing of GCM-owned memory, a typed

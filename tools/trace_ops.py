@@ -1,21 +1,23 @@
-"""Capture a device trace of the benched CRM step and print a per-op table.
+"""Reduce a JAX profiler trace to device-busy time and a per-op table (GPU).
 
-This is the auditable artifact behind PERF.md's roofline claims: it traces
-N steps of the selected configuration (PAM_BENCH_MICRO/PAM_BENCH_SGS env,
-default kessler/none), aggregates XLA op time on the device timeline, and
-writes a JSON op-table to PERF_optable_<config>.json at the repo root.
+``gpu_busy(trace_dir)`` reads the ``.xplane.pb`` files under ``trace_dir``
+and, for the first GPU's plane, returns the union of its kernel/copy
+intervals (busy time), the span from the first start to the last end
+(window) and the summed duration per op name. It uses the plane's
+``XLA Ops`` line when there is one and otherwise every ``Stream`` line,
+so overlapping events on several streams are counted once in
+``busy_ns``. It returns None when the trace has no GPU plane.
 
-Usage:
-  python tools/trace_ops.py                      # kessler config
-  PAM_BENCH_MICRO=p3 PAM_BENCH_SGS=shoc python tools/trace_ops.py
-
-The table groups ops by their XLA fusion/op name prefix (e.g. 'fusion',
-'while', 'all-reduce') and also prints the top individual ops per step.
+Usage (on the card):
+  python tools/trace_ops.py [--micro kessler --sgs none --nens 128]
+      traces 10 CRM steps of that configuration and prints busy/idle
+      share and the top ops;
+  python tools/trace_ops.py --dump
+      also prints every plane and line of the trace with its event count.
 """
 
-import json
+import argparse
 import os
-import re
 import sys
 import tempfile
 import time
@@ -24,126 +26,106 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def collect_device_events(trace_dir):
-    """Parse the xplane proto(s) under trace_dir; return a list of
-    (name, total_duration_us, count) summed over the device planes."""
+def _xplanes(trace_dir):
     from jax.profiler import ProfileData
-    paths = []
     for root, _, files in os.walk(trace_dir):
-        for f in files:
+        for f in sorted(files):
             if f.endswith(".xplane.pb"):
-                paths.append(os.path.join(root, f))
-    agg = defaultdict(lambda: [0.0, 0])
-    for p in paths:
-        data = ProfileData.from_file(p)
-        for plane in data.planes:
-            pname = plane.name.lower()
-            if not ("tpu" in pname or "device" in pname or "/gpu" in pname):
-                continue
-            if "host" in pname:
-                continue
-            for line in plane.lines:
-                # the synchronous compute queue only: 'XLA Ops'. The
-                # 'Async XLA Ops' line carries DMA spans that OVERLAP
-                # compute (their durations double-count wall time).
-                if line.name != "XLA Ops":
-                    continue
-                for ev in line.events:
-                    dur_us = ev.duration_ns / 1e3
-                    agg[ev.name][0] += dur_us
-                    agg[ev.name][1] += 1
-    return [(k, v[0], v[1]) for k, v in agg.items()]
+                yield ProfileData.from_file(os.path.join(root, f))
 
 
-def group_key(name):
-    """Aggregate key: strip trailing .N / digits from the op name."""
-    base = name.split(".")[0]
-    return re.sub(r"[0-9]+$", "", base)
+def gpu_busy(trace_dir, dump=False):
+    for data in _xplanes(trace_dir):
+        planes = list(data.planes)
+        if dump:
+            for plane in planes:
+                for line in plane.lines:
+                    print(f"plane {plane.name!r} line {line.name!r}: "
+                          f"{sum(1 for _ in line.events)} events")
+        gpus = sorted((p for p in planes
+                       if p.name.lower().startswith("/device:gpu:")),
+                      key=lambda p: p.name)
+        if not gpus:
+            continue
+        lines = list(gpus[0].lines)
+        chosen = [ln for ln in lines if ln.name == "XLA Ops"] or \
+            [ln for ln in lines if ln.name.startswith("Stream")]
+        spans, per_op = [], defaultdict(int)
+        for line in chosen:
+            for ev in line.events:
+                spans.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+                per_op[ev.name] += ev.duration_ns
+        if not spans:
+            return None
+        spans.sort()
+        busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        return dict(busy_ns=busy, window_ns=cur_e - spans[0][0],
+                    per_op_ns=dict(per_op),
+                    lines=[ln.name for ln in chosen])
+    return None
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--micro", default="kessler")
+    ap.add_argument("--sgs", default="none")
+    ap.add_argument("--dycore", default="spam")
+    ap.add_argument("--nens", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--dump", action="store_true")
+    args = ap.parse_args()
     import jax
     import jax.numpy as jnp
-    from pam_tpu.driver.mmf import setup_supercell_mmf
-    from pam_tpu.modules import gcm_forcing
-
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-    except Exception:
-        pass
-
-    nens = int(os.environ.get("PAM_BENCH_NENS", "128"))
-    micro = os.environ.get("PAM_BENCH_MICRO", "kessler")
-    sgs = os.environ.get("PAM_BENCH_SGS", "none")
-    nsteps = int(os.environ.get("PAM_TRACE_STEPS", "10"))
-    spinup = int(os.environ.get("PAM_PROF_SPINUP", "20"))
+    if jax.devices()[0].platform != "gpu":
+        print("trace_ops: needs a GPU", file=sys.stderr)
+        return 2
+    from pam_jax.compile_cache import enable_compile_cache
+    from pam_jax.driver.mmf import setup_supercell_mmf
+    from pam_jax.modules import gcm_forcing
+    enable_compile_cache()
     drv, state = setup_supercell_mmf(
-        nx=65, ny=1, nz=50, nens=nens, xlen=128000.0, ylen=64000.0,
-        zlen=20000.0, micro=micro, sgs=sgs, dt_gcm=900.0, dt_crm_phys=20.0,
-        dycore="spam", dtype=jnp.float32,
-        dycore_kwargs={"linear_system": "velocity"})
+        nx=65, ny=1, nz=50, nens=args.nens, xlen=128000.0, ylen=64000.0,
+        zlen=20000.0, micro=args.micro, sgs=args.sgs, dt_gcm=900.0,
+        dt_crm_phys=20.0, dycore=args.dycore, dtype=jnp.float32)
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        drv.dt_gcm)
-    print(f"devices: {jax.devices()}  nens={nens} micro={micro} sgs={sgs}")
     step = jax.jit(drv.crm_phys_step)
-    for _ in range(spinup):
+    for _ in range(5):
         state = step(state)
     jax.block_until_ready(state)
-
     t0 = time.perf_counter()
-    for _ in range(nsteps):
+    for _ in range(args.steps):
         state = step(state)
     jax.block_until_ready(state)
-    wall_ms = (time.perf_counter() - t0) / nsteps * 1e3
-
+    wall = (time.perf_counter() - t0) / args.steps * 1e3
     tdir = tempfile.mkdtemp(prefix="pam_trace_")
     jax.profiler.start_trace(tdir)
-    s = state
-    for _ in range(nsteps):
-        s = step(s)
-    jax.block_until_ready(s)
+    for _ in range(args.steps):
+        state = step(state)
+    jax.block_until_ready(state)
     jax.profiler.stop_trace()
-
-    events = collect_device_events(tdir)
-    total_us = sum(d for _, d, _ in events)
-    print(f"\nwall/step: {wall_ms:.2f} ms;  device op time/step: "
-          f"{total_us / nsteps / 1e3:.2f} ms  ({len(events)} distinct ops)")
-
-    groups = defaultdict(lambda: [0.0, 0])
-    for name, dur, cnt in events:
-        g = groups[group_key(name)]
-        g[0] += dur
-        g[1] += cnt
-    print(f"\n{'op group':28s} {'us/step':>10s} {'%':>6s} {'count/step':>11s}")
-    rows = []
-    for name, (dur, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        pct = 100.0 * dur / total_us if total_us else 0.0
-        rows.append(dict(group=name, us_per_step=round(dur / nsteps, 1),
-                         pct=round(pct, 1), count_per_step=cnt / nsteps))
-        if pct >= 0.3:
-            print(f"{name:28s} {dur / nsteps:10.1f} {pct:6.1f} "
-                  f"{cnt / nsteps:11.1f}")
-
-    print(f"\ntop individual ops ({'us/step'}):")
-    top = sorted(events, key=lambda e: -e[1])[:25]
-    for name, dur, cnt in top:
-        print(f"  {dur / nsteps:8.1f}  x{cnt / nsteps:5.1f}  {name[:90]}")
-
-    out = dict(config=f"micro={micro},sgs={sgs}", nens=nens,
-               wall_ms_per_step=round(wall_ms, 3),
-               device_ms_per_step=round(total_us / nsteps / 1e3, 3),
-               groups=rows,
-               top_ops=[dict(name=n, us_per_step=round(d / nsteps, 1),
-                             count_per_step=c / nsteps) for n, d, c in top])
-    outp = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), f"PERF_optable_{micro}_{sgs}.json")
-    with open(outp, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"\nwrote {outp}")
+    r = gpu_busy(tdir, dump=args.dump)
+    if r is None:
+        print("no GPU events in the trace: device time not measured")
+        return 1
+    n = args.steps
+    print(f"{args.micro}+{args.sgs} {args.dycore} nens={args.nens}: wall "
+          f"{wall:.3f} ms/step (untraced); traced window "
+          f"{r['window_ns'] / n / 1e6:.3f} ms/step, busy "
+          f"{r['busy_ns'] / n / 1e6:.3f} ms/step, idle share "
+          f"{1 - r['busy_ns'] / r['window_ns']:.3f}; lines {r['lines']}")
+    top = sorted(r["per_op_ns"].items(), key=lambda kv: -kv[1])[:25]
+    for name, ns in top:
+        print(f"  {ns / n / 1e3:10.1f} us/step  {name[:100]}")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
