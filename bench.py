@@ -68,14 +68,17 @@ def device_busy_ms(step, state, nsteps, sync):
         shutil.rmtree(tdir, ignore_errors=True)
 
 
-def run_config(micro, sgs, dycore, nens, chunk=None, steps=60, reps=3,
-               trace_steps=10):
+def build(micro, sgs, dycore, nens, chunk=None):
+    """Compiled step of one configuration over its host-dispatched chunks.
+
+    Returns ``(step, state, sync, compile_s, chunk)``: ``step`` maps the
+    tuple of chunk states one CRM step on, ``sync`` waits for it, and
+    ``compile_s`` is the time of the first (compiling) step."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
-    from pam_jax.driver.mmf import (setup_supercell_mmf, pick_ens_chunk,
-                                    _split_ens, _join_ens)
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import (setup_supercell_mmf, pick_ens_chunk,
+                                    _split_ens)
+    from pam_tpu.modules import gcm_forcing
 
     if chunk == "auto":
         chunk = pick_ens_chunk(NX, NY, NZ, jnp.float32, nens)
@@ -91,8 +94,7 @@ def run_config(micro, sgs, dycore, nens, chunk=None, steps=60, reps=3,
     state = gcm_forcing.compute_gcm_forcing_tendencies(
         drv.coupler, state, drv.dt_gcm)
     inner = drv._jitted_single()
-    n_chunks = nens // drv_nens
-    state = _split_ens(state, n_chunks)
+    state = _split_ens(state, nens // drv_nens)
 
     def step(cs):
         return tuple(inner(c) for c in cs)
@@ -103,17 +105,29 @@ def run_config(micro, sgs, dycore, nens, chunk=None, steps=60, reps=3,
     t0 = time.perf_counter()
     state = step(state)
     sync(state)
-    compile_s = time.perf_counter() - t0
-    for _ in range(3):
+    return step, state, sync, time.perf_counter() - t0, drv_nens
+
+
+def time_steps(step, state, sync, steps):
+    """(ms per step, state) over ``steps`` steps, wall clock."""
+    t0 = time.perf_counter()
+    for _ in range(steps):
         state = step(state)
     sync(state)
+    return (time.perf_counter() - t0) / steps * 1e3, state
+
+
+def run_config(micro, sgs, dycore, nens, chunk=None, steps=60, reps=3,
+               trace_steps=10):
+    import numpy as np
+    from pam_tpu.driver.mmf import _join_ens
+    step, state, sync, compile_s, drv_nens = build(micro, sgs, dycore, nens,
+                                                   chunk)
+    _, state = time_steps(step, state, sync, 3)
     ms = []
     for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state = step(state)
-        sync(state)
-        ms.append((time.perf_counter() - t0) / steps * 1e3)
+        m, state = time_steps(step, state, sync, steps)
+        ms.append(m)
     if not bool(np.isfinite(np.asarray(_join_ens(state)["temp"])).all()):
         raise SystemExit("non-finite state after the benchmark run")
     busy = device_busy_ms(step, state, trace_steps, sync)
@@ -150,7 +164,7 @@ def main():
         log(f"bench.py needs a GPU; JAX found {jax.devices()[0].platform}")
         return 2
     sys.path.insert(0, REPO)
-    from pam_jax.compile_cache import enable_compile_cache
+    from pam_tpu.compile_cache import enable_compile_cache
     enable_compile_cache()
     card_name = card()
     log(f"devices: {jax.devices()}; card: {card_name}")

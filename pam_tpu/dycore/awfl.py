@@ -9,7 +9,7 @@ Design decisions vs the reference CUDA/YAKL implementation:
 
 * One fused, fully data-parallel flux evaluation per direction instead of a
   per-(cell,face) thread loop: stencil windows are stacked views, the WENO
-  limiter is unrolled elementwise arithmetic (pam_jax.ops.weno), upwinding
+  limiter is unrolled elementwise arithmetic (pam_tpu.ops.weno), upwinding
   is an elementwise select on stacked stencils (no divergent branches).
 * FCT is re-derived without atomics/benign races (Dycore.h:521-550): cell
   limiter factors are computed in one pass and scattered to faces with masked
@@ -24,7 +24,7 @@ Design decisions vs the reference CUDA/YAKL implementation:
   transpose.
 
 All reconstruction matrices are derived at setup with numpy
-(pam_jax.ops.recon_matrices), including per-level variable-grid vertical
+(pam_tpu.ops.recon_matrices), including per-level variable-grid vertical
 matrices (analog of Dycore.h:897-940).
 """
 
@@ -87,7 +87,7 @@ class AwflDycore:
         tables = weno.weno_tables(ord, dtype=coupler.dtype)
         s2c, wrl = rm.vertical_recon_matrices(dz, ord)
         hs = (ord + 1) // 2
-        # LEADING matrix dims + trailing batch (pam_jax.ops.weno docstring):
+        # LEADING matrix dims + trailing batch (pam_tpu.ops.weno docstring):
         # batch dims (nens, 1[y], nz+2, 1[x]) aligning with the internal
         # (..., ny, nz, nx) layout; level axis is -2
         vs2c = jnp.moveaxis(jnp.asarray(s2c, coupler.dtype),

@@ -14,7 +14,7 @@ The reference computes its SI solves with pocketfft-style FFTs along x
 * O(n^2) vs O(n log n) is irrelevant at n <= a few hundred. (The GPU
   time of either form: not measured.)
 
-Every contraction runs at Precision.HIGHEST (pam_jax.ops.precise): at
+Every contraction runs at Precision.HIGHEST (pam_tpu.ops.precise): at
 default precision an f32 matmul on a GPU may use TF32 (~3 digits).
 For large n, fall back to ``jnp.fft`` (threshold PAM_DFT_MATMUL_MAX,
 default 1024).
@@ -99,7 +99,7 @@ def ifft_real(a, axis: int = -1):
 # x-sharding-aware transforms for the SI spectral solves
 # ---------------------------------------------------------------------------
 #
-# Under manual x-sharding (pam_jax.parallel.comm axis context), the forward
+# Under manual x-sharding (pam_tpu.parallel.comm axis context), the forward
 # DFT along x is computed as a LOCAL contraction of the device's x block
 # against the matching columns of the DFT matrix, followed by one
 # ``lax.psum`` over the x mesh axis — so spectral space comes out fully

@@ -9,13 +9,16 @@ flops, no serialization — and is stable for the diagonally-dominant
 (I + dt*L) systems PAM builds.
 
 ``PAM_TRIDIAG=thomas|pcr|auto`` (auto: PCR on accelerators, Thomas on
-CPU, where the scan is cheap and bitwise matches the Fortran oracles).
-Which one is faster inside the step on the H100 is not measured yet
-(ROADMAP S6).
+CPU, where the scan is cheap and bitwise matches the Fortran oracles);
+``solver(mode)`` forces a mode for the steps traced inside it.
+On an H100 (700 W) the production P3+SHOC step at nens=512 (65x1x50,
+f32) takes 39.975 ms per CRM step with PCR and 45.227 ms with Thomas
+(medians of four rounds, tools/step_ab.py), so accelerators keep PCR.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os as _os
 
 import jax
@@ -24,16 +27,41 @@ import jax.numpy as jnp
 _TRIDIAG_MODE = _os.environ.get("PAM_TRIDIAG", "auto")
 
 
+@contextlib.contextmanager
+def solver(mode: str):
+    """Force ``"thomas"``, ``"pcr"`` or ``"auto"`` while tracing inside the
+    block. The choice is made at trace time, so a function jitted and
+    traced before the block keeps the solver it was traced with."""
+    global _TRIDIAG_MODE
+    if mode not in ("thomas", "pcr", "auto"):
+        raise ValueError(f"unknown tridiagonal solver {mode!r}")
+    old, _TRIDIAG_MODE = _TRIDIAG_MODE, mode
+    try:
+        yield
+    finally:
+        _TRIDIAG_MODE = old
+
+
+def _platform(x) -> str:
+    """Platform that ``x`` lives on; for a tracer, the platform the traced
+    computation is placed on (``jax.default_device`` if set, part of the
+    jit key, else the default backend)."""
+    try:
+        return list(x.devices())[0].platform
+    except Exception:
+        dev = jax.config.jax_default_device
+        if dev is None:
+            return jax.default_backend()
+        return dev if isinstance(dev, str) else dev.platform
+
+
 def use_pcr(x) -> bool:
     """True when the PCR path should be used for array ``x``."""
     if _TRIDIAG_MODE == "pcr":
         return True
     if _TRIDIAG_MODE == "thomas":
         return False
-    try:
-        return list(x.devices())[0].platform not in ("cpu",)
-    except Exception:
-        return jax.default_backend() not in ("cpu",)
+    return _platform(x) != "cpu"
 
 
 def shift0(a, off, fill=0.0):

@@ -8,7 +8,7 @@ LEADING stencil axes. Stencil/coefficient axes live at the FRONT of the
 arrays so the trailing (spatial) dims stay contiguous; a length-5 stencil
 axis minor-most would make every intermediate a strided gather.
 
-All matrices come from :mod:`pam_jax.ops.recon_matrices` (derived with numpy,
+All matrices come from :mod:`pam_tpu.ops.recon_matrices` (derived with numpy,
 not copied from the reference's generated tables).
 """
 

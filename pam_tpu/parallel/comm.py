@@ -25,7 +25,7 @@ played by:
                           sharded FFT" of SURVEY.md §7.
 
 The active mesh-axis names are carried in a context (set by
-``pam_jax.parallel.sharded_step`` around the shard_mapped step body), so the
+``pam_tpu.parallel.sharded_step`` around the shard_mapped step body), so the
 whole stencil codebase is written once against ``proll`` and runs unchanged
 in three modes: unsharded, GSPMD-auto-sharded (context inactive -> XLA
 partitions the rolls itself), and explicit shard_map (context active ->

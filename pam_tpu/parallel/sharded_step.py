@@ -5,7 +5,7 @@ This is the JAX analog of the reference's MPI domain decomposition
 horizontal x (and, for 3-D runs, y) axes are sharded MANUALLY over the
 device mesh — every halo fetch is a hand-placed ``jax.lax.ppermute``, every
 horizontal reduction a ``lax.psum/pmean``, and the semi-implicit spectral
-solves run through an ``all_to_all`` transpose (pam_jax.parallel.comm).
+solves run through an ``all_to_all`` transpose (pam_tpu.parallel.comm).
 The ensemble axis stays OUTSIDE the manual region: ``shard_map`` is given
 ``axis_names={x[,y]}`` only, so GSPMD auto-partitions the (embarrassingly
 parallel) ens axis from the arrays' own shardings — zero communication,

@@ -4,7 +4,7 @@ Full port of the reference column Fortran (physics/micro/p3/fortran/
 micro_p3.F90: p3_main + parts 1/2/3, process subroutines, DSD helpers,
 adaptive-substepping sedimentation, homogeneous freezing) re-designed as
 whole-array JAX ops: every per-level branch becomes a mask, the scalar
-lookup-table walks become batched gathers (pam_jax.physics.p3.tables), and
+lookup-table walks become batched gathers (pam_tpu.physics.p3.tables), and
 the data-dependent sedimentation substepping runs as ``lax.while_loop``.
 
 Array convention INSIDE this module: (nz, ...batch) with k=0 = model TOP

@@ -6,7 +6,7 @@ exner/theta/dpres_dry inputs (:344-385), runs the column scheme, and maps
 results back with the constant-volume cv/cp temperature correction
 (:676-704).
 
-Orientation note: the scheme (pam_jax.physics.p3.main) works top-down
+Orientation note: the scheme (pam_tpu.physics.p3.main) works top-down
 (k=0 = top), so columns are flipped on the way in and out — matching the
 reference's C++ (P3_CXX) path (`k_p3 = nz-1-k`, Microphysics.h:463).
 

@@ -158,7 +158,7 @@ def indices_3(mu_r, lamr):
 # w[k] = max(0, 1 - |k - x|), so the whole multilinear interpolation is a
 # few small contractions. Algebraically identical to the nested-lerp form
 # (same two nonzero weights per axis). The contractions run at full
-# precision (pam_jax.ops.precise).
+# precision (pam_tpu.ops.precise).
 # ---------------------------------------------------------------------------
 
 def _hat(n, x):

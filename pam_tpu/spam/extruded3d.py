@@ -2,7 +2,7 @@
 
 Parity reference: dynamics/spam/src/models/extrudedmodel.h with ndims=2 —
 the reference's 3-D compile configuration. Relative to the x-z slab
-(pam_jax.spam.tendencies) this adds:
+(pam_tpu.spam.tendencies) this adds:
 
 * a second horizontal velocity component ``v[1]`` (y-edges) and the
   y-direction mass flux F[1] (kinetic_energy.h compute_he_U_and_K ndims>1),

@@ -16,7 +16,7 @@ Horizontal grid is uniform periodic; ndims=1 sets dy=1 (geometry.h:282-288).
 
 Field layout in this implementation: ``(ndof, nens, nlev, nx)`` with no
 stored halos — x shifts are periodic rolls, z stencils use explicit mirror
-padding (pam_jax.spam.operators).
+padding (pam_tpu.spam.operators).
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ hamiltonians/functionals.h Functional_PVPE (:10-75) + the 2D wedge ops
 Design: the reference's ~15 staged kernels per tendency
 evaluation collapse into one fused jittable function over
 ``(ndof, nens, ny, nx)`` arrays; periodic shifts are ``jnp.roll``; the
-per-thread WENO edge recon is the batched limiter of pam_jax.ops.weno.
+per-thread WENO edge recon is the batched limiter of pam_tpu.ops.weno.
 
 2D indexing quirks transcribed verbatim:
 * straight (primal) reconstructions enumerate dims REVERSED — component

@@ -8,7 +8,7 @@ densities) — the reference's compile-time defaults (src/common.h:62-126).
 Redesign: the reference's ~20 staged kernels with inter-stage MPI
 exchanges collapse into one fused pure function over whole arrays; halo
 exchanges become periodic rolls (x) and mirror pads (z); every WENO
-evaluation is the batched limiter from pam_jax.ops.weno.
+evaluation is the batched limiter from pam_tpu.ops.weno.
 
 Sign convention: compute_rhs returns F with dx/dt = -F, matching the
 reference integrators (SSPRK.h:63-78 uses waxpy(-dt, F, x)).

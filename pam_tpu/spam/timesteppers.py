@@ -3,7 +3,7 @@
 Parity reference: dynamics/spam/src/timesteppers/ —
 SSPRK.h (ssprk2/3/34, :33-82), KGRK.h (Kinnmark-Gray RK, kgrk2..kgrk10
 stage coefficients :57-130), LSRK.h (low-storage RK lsrk5/12/13/14
-:29-125). The semi-implicit integrators live in pam_jax.spam.si.
+:29-125). The semi-implicit integrators live in pam_tpu.spam.si.
 
 All steppers take ``rhs(x) -> F`` with the convention dx/dt = -F (the
 reference's waxpy(-dt, F, x) update) and a pytree state x (tuple of

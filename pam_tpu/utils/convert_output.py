@@ -6,8 +6,8 @@ useful direction for this framework: the scalable HDF5 writer's files
 (io/output.py HDF5Writer) -> NetCDF-3 for tools that only read classic
 NetCDF, and vice versa.
 
-Usage: python -m pam_jax.utils.convert_output out.h5 out.nc
-       python -m pam_jax.utils.convert_output out.nc out.h5
+Usage: python -m pam_tpu.utils.convert_output out.h5 out.nc
+       python -m pam_tpu.utils.convert_output out.nc out.h5
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ extrudedmodel.h:6707-6990), and reports Linf / L2 errors, observed
 convergence rates, and the dissipation/dispersion error split
 (compute_Ediss_and_Edisp).
 
-Run:  python -m pam_jax.utils.gw_verification [nlevels] [base_dt]
+Run:  python -m pam_tpu.utils.gw_verification [nlevels] [base_dt]
 """
 
 from __future__ import annotations

@@ -80,7 +80,7 @@ def generate(function: str = "tanh", nlev: int = 64, z0: float = 0.0,
 
 
 def save_netcdf(path: str, zint: np.ndarray):
-    """Write vcoords file readable by pam_jax.driver.standalone.build_zint."""
+    """Write vcoords file readable by pam_tpu.driver.standalone.build_zint."""
     from scipy.io import netcdf_file
     with netcdf_file(path, "w") as f:
         f.createDimension("num_interfaces", len(zint))

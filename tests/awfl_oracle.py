@@ -17,9 +17,9 @@ reference CUDA/YAKL kernels —
 
 exactly as the Fortran transliterations in p3_oracle.py / shoc_oracle.py
 serve the physics: test-only executable golden data, never imported by
-``pam_jax``. The reconstruction MATRICES (sten_to_coefs, coefs_to_gll,
+``pam_tpu``. The reconstruction MATRICES (sten_to_coefs, coefs_to_gll,
 weno_recon_lower, ideal weights, per-level vertical stacks) come from
-``pam_jax.ops.recon_matrices``, which is itself independently validated
+``pam_tpu.ops.recon_matrices``, which is itself independently validated
 against the reference's regular/irregular recon unit tests
 (tests/test_recon.py) — the oracle exercises everything the port
 VECTORIZES on top of them (stencil windows, upwind select, masks, FCT,
@@ -32,7 +32,7 @@ configuration) is implemented.
 FCT seam rule: the reference reconciles the duplicated periodic wrap face
 with a post-hoc ``min()`` (Dycore.h:574-579); the port applies the
 uniform interior rule at the seam instead (required for
-sharding-invariant results — pam_jax/dycore/awfl.py ``limit``). The
+sharding-invariant results — pam_tpu/dycore/awfl.py ``limit``). The
 oracle implements BOTH (``seam_rule="uniform" | "reference"``); the two
 differ only when a positivity limiter fires at a periodic seam face with
 inflow there.

@@ -2,7 +2,7 @@
 
 A FRESH per-column, per-level transliteration of the reference Fortran
 (physics/micro/p3/fortran/micro_p3.F90 + scream_common/micro_p3_utils.F90 +
-scream_common/wv_sat_scream.F90), written independently of pam_jax's JAX
+scream_common/wv_sat_scream.F90), written independently of pam_tpu's JAX
 port to serve as an executable golden reference (VERDICT r2 item 2): it
 keeps the Fortran's scalar control flow — goto-style level skips, the
 moving k_qxbot sedimentation window, nested-lerp table walks — precisely
@@ -89,7 +89,7 @@ INCLOUD_LIMIT = 5.1e-3
 PRECIP_LIMIT = 1.0e-2
 
 _TABLE_FILE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "pam_jax", "physics", "p3", "tables",
+    os.path.abspath(__file__))), "pam_tpu", "physics", "p3", "tables",
     "p3_lookup_table_1.dat-v4")
 
 

@@ -1,7 +1,7 @@
 """Scalar/loop numpy oracle of the full SHOC step (shoc.F90 shoc_main).
 
 A FRESH transliteration of the reference Fortran
-(physics/sgs/shoc/fortran/shoc.F90), written independently of pam_jax's
+(physics/sgs/shoc/fortran/shoc.F90), written independently of pam_tpu's
 JAX port as an executable golden reference (VERDICT r2 item 2): it keeps
 the Fortran's sequential structures — the factorized-LU tridiagonal
 diffusion solve, pblintd's short-circuiting downward Richardson search,

@@ -3,7 +3,7 @@ tendencies — the y-varying oracle (VERDICT r4 item 3a).
 
 TEST-ONLY executable golden reference: loop-level numpy transliterations
 of the reference kernels with the ndims=2 branches, used to validate the
-independently-written port (pam_jax/spam/extruded3d.py) on genuinely
+independently-written port (pam_tpu/spam/extruded3d.py) on genuinely
 y-varying data — the regime the x/y-degenerate slab reductions cannot
 probe (a sign error in qxy/Qyz/W2D or a y-recon that cancels in
 degenerate configs would survive them).
@@ -24,7 +24,7 @@ Sources transliterated (cited per function):
 * kinetic_energy.h compute_he_U_and_K:306-395 (ndims=2 y terms)
 * hamiltonians/thermo.h IdealGas_Pottemp:70-200
 
-Never imported by pam_jax.
+Never imported by pam_tpu.
 """
 
 import numpy as np

@@ -35,7 +35,7 @@ the coupled MCE_rho + ConstantKappa_VirtualPottemp configuration:
   (extrudedmodel.h:2188-2204 F2VAR/FW2VAR vs :2338-2460 FVAR/FWVAR)
 
 exactly as tests/{p3,shoc,awfl}_oracle.py serve their components:
-test-only executable golden data, never imported by ``pam_jax``. The
+test-only executable golden data, never imported by ``pam_tpu``. The
 WENO limiter core and its matrices are shared with tests/awfl_oracle.py
 (the reference's WENOFUNC is the same published algorithm with the same
 "new tunings from Matt", weno_func_recon.h:63-124 == WenoLimiter.h).

@@ -5,15 +5,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pam_jax.spam.geometry import ExtrudedGeometry
-from pam_jax.spam.thermo import IdealGasPottemp
-from pam_jax.spam.varset import VariableSet
-from pam_jax.spam.testcases import RisingBubble, project_n1form
-from pam_jax.spam import si
-from pam_jax.spam import operators as op
+from pam_tpu.spam.geometry import ExtrudedGeometry
+from pam_tpu.spam.thermo import IdealGasPottemp
+from pam_tpu.spam.varset import VariableSet
+from pam_tpu.spam.testcases import RisingBubble, project_n1form
+from pam_tpu.spam import si
+from pam_tpu.spam import operators as op
 import pytest
 
-from pam_jax.spam.anelastic import (AnelasticPressureSolver,
+from pam_tpu.spam.anelastic import (AnelasticPressureSolver,
                                     AnelasticTendencies, project_initial)
 
 
@@ -119,7 +119,7 @@ def test_anelastic_bubble_rises_beyond_acoustic_cfl():
 def test_si_fixed_matches_explicit():
     """SIFixedTimeIntegrator (SI_Fixed.h): the fixed-point SI step on the
     anelastic system agrees with fine-dt explicit SSPRK3."""
-    from pam_jax.driver.standalone import run_idealized
+    from pam_tpu.driver.standalone import run_idealized
     cfg = dict(init_data="risingbubble", hamil="an", crm_nx=12, crm_nz=12,
                sim_time=60.0, tstype="si_fixed", dtcrm=5.0, out_prefix=None)
     dens, v, w = run_idealized(cfg, verbose=False)

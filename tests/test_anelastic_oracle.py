@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.spam import si
-from pam_jax.spam.geometry import ExtrudedGeometry
-from pam_jax.spam.thermo import IdealGasPottemp
-from pam_jax.spam.varset import VariableSet
-from pam_jax.spam.testcases import RisingBubble, project_n1form
-from pam_jax.spam.anelastic import (AnelasticPressureSolver,
+from pam_tpu.spam import si
+from pam_tpu.spam.geometry import ExtrudedGeometry
+from pam_tpu.spam.thermo import IdealGasPottemp
+from pam_tpu.spam.varset import VariableSet
+from pam_tpu.spam.testcases import RisingBubble, project_n1form
+from pam_tpu.spam.anelastic import (AnelasticPressureSolver,
                                     AnelasticTendencies)
-from pam_jax.ops import recon_matrices as rm
+from pam_tpu.ops import recon_matrices as rm
 
 import spam_oracle as orc
 

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.core import Coupler, Constants
-from pam_jax.dycore.awfl import AwflDycore
-from pam_jax.dycore import awfl_init
+from pam_tpu.core import Coupler, Constants
+from pam_tpu.dycore.awfl import AwflDycore
+from pam_tpu.dycore import awfl_init
 
 
 def make_thermal_setup(nx=20, nz=10, nens=1, ny=1, dtype=jnp.float64):

@@ -16,9 +16,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.core import Coupler
-from pam_jax.dycore.awfl import AwflDycore
-from pam_jax.ops import recon_matrices as rm
+from pam_tpu.core import Coupler
+from pam_tpu.dycore.awfl import AwflDycore
+from pam_tpu.ops import recon_matrices as rm
 
 import awfl_oracle as orc
 
@@ -139,7 +139,7 @@ def test_seam_rule_documented_deviation():
     post-hoc min() reconciliation (Dycore.h:574-579): identical everywhere
     except possibly the seam faces of a tracer whose limiter fires at the
     boundary with seam inflow; the deviation is documented at
-    pam_jax/dycore/awfl.py ``limit``."""
+    pam_tpu/dycore/awfl.py ``limit``."""
     _, _, _, tt_uni, ctx = _run_both(nx=8, ny=1, nz=6, nens=2, seed=3)
     _, tt_ref = orc.compute_tendencies_oracle(
         ctx["dyn_o"], ctx["trac_o"], ctx["trac_o"], ctx["dt"],
@@ -180,7 +180,7 @@ def test_awfl_full_timestep_matches_oracle():
     from_orc = lambda a: jnp.asarray(np.transpose(a, (0, 4, 2, 1, 3)))
     hy_dens = np.transpose(np.asarray(state["hy_dens_cells"]))
     hy_pres = np.transpose(np.asarray(state["hy_pressure_cells"]))
-    from pam_jax.ops import recon_matrices as rm2
+    from pam_tpu.ops import recon_matrices as rm2
     s2c_v, wrl_v = rm2.vertical_recon_matrices(
         np.broadcast_to(dzc, (nens, nz)), dyc.ord)
     idl, sigma = rm2.weno_ideal_weights(dyc.ord)

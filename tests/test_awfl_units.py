@@ -8,8 +8,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pam_jax.ops import banded, weno
-from pam_jax.spam.dycore import exact_inverse_avg, exact_inverse_w
+from pam_tpu.ops import banded, weno
+from pam_tpu.spam.dycore import exact_inverse_avg, exact_inverse_w
 
 
 def test_solve_banded_matches_dense():
@@ -141,7 +141,7 @@ def test_exact_inverse_in_coupled_dycore():
     """SpamDycore with couple_wind_exact_inverse reproduces coupler winds
     exactly through a coupler->dynamics->coupler roundtrip (odd nx)."""
     import dataclasses
-    from pam_jax.driver.mmf import setup_supercell_mmf
+    from pam_tpu.driver.mmf import setup_supercell_mmf
     drv, state = setup_supercell_mmf(nx=17, ny=1, nz=10, nens=1,
                                      xlen=34000.0, ylen=64000.0,
                                      zlen=20000.0, micro="kessler",

@@ -4,10 +4,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pam_jax.spam import ExtrudedGeometry, VariableSet, SpamTendencies
-from pam_jax.spam import testcases as tcs
-from pam_jax.spam import diagnostics as diag
-from pam_jax.spam.thermo import IdealGasPottemp
+from pam_tpu.spam import ExtrudedGeometry, VariableSet, SpamTendencies
+from pam_tpu.spam import testcases as tcs
+from pam_tpu.spam import diagnostics as diag
+from pam_tpu.spam.thermo import IdealGasPottemp
 
 
 def test_diagnostics_shapes_and_values():
@@ -37,7 +37,7 @@ def test_diagnostics_3d_model():
     import sys, os
     sys.path.insert(0, os.path.dirname(__file__))
     from test_extruded3d import make_pair, bcast_y
-    from pam_jax.spam import diagnostics
+    from pam_tpu.spam import diagnostics
     import jax.numpy as jnp
     tc, geom1, geom3, t1, t3, dens1, v1, w1, geop1 = make_pair()
     dens3 = bcast_y(dens1, geom3.ny, geom3.dy)

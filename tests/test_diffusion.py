@@ -9,9 +9,9 @@ resolutions and check ~2nd-order convergence to the continuum Laplacian.
 import numpy as np
 import jax.numpy as jnp
 
-from pam_jax.spam import ExtrudedGeometry, VariableSet, SpamTendencies
-from pam_jax.spam import diffusion as diff
-from pam_jax.spam.thermo import IdealGasPottemp
+from pam_tpu.spam import ExtrudedGeometry, VariableSet, SpamTendencies
+from pam_tpu.spam import diffusion as diff
+from pam_tpu.spam.thermo import IdealGasPottemp
 import pytest
 
 LX = 2.0
@@ -113,7 +113,7 @@ def test_diffusion_dissipates_energy_in_dynamics():
     must reduce kinetic energy relative to the inviscid run."""
     import dataclasses
     import jax
-    from pam_jax.spam import testcases as tcs
+    from pam_tpu.spam import testcases as tcs
 
     tc = tcs.RisingBubble()
     geom = ExtrudedGeometry.build(16, np.linspace(0.0, tc.Lz, 17), tc.Lx, 1,

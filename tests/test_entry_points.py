@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax import compile_cache
-from pam_jax.driver import standalone
+from pam_tpu import compile_cache
+from pam_tpu.driver import standalone
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
@@ -51,8 +51,8 @@ def test_cache_helper_defaults_to_repo(monkeypatch):
 def test_step_contractions_are_highest_precision(micro, sgs):
     """On a GPU an f32 dot_general at default precision may run in TF32;
     every one in the lowered CRM step must ask for HIGHEST."""
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(
         nx=8, ny=1, nz=10, nens=2, xlen=16000.0, micro=micro, sgs=sgs,
         dt_gcm=40.0, dt_crm_phys=20.0, dycore="spam", dtype=jnp.float32)

@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pam_jax.spam import (ExtrudedGeometry, IdealGasPottemp, VariableSet,
+from pam_tpu.spam import (ExtrudedGeometry, IdealGasPottemp, VariableSet,
                           SpamTendencies)
-from pam_jax.spam import testcases as tcs
-from pam_jax.spam.extruded3d import Tendencies3D
+from pam_tpu.spam import testcases as tcs
+from pam_tpu.spam.extruded3d import Tendencies3D
 import pytest
 
 
@@ -122,7 +122,7 @@ def test_qxy_of_horizontal_gradient_vanishes():
     rng = np.random.default_rng(5)
     phi = jnp.asarray(rng.standard_normal(
         (geom3.nens, geom3.nz, geom3.ny, geom3.nx)))
-    from pam_jax.spam.extruded3d import rx, ry
+    from pam_tpu.spam.extruded3d import rx, ry
     v3 = jnp.stack([phi - rx(phi, -1), phi - ry(phi, -1)])
     w3 = jnp.zeros((geom3.nens, geom3.nz - 1, geom3.ny, geom3.nx))
     dens3 = bcast_y(dens1, geom3.ny, geom3.dy)
@@ -165,7 +165,7 @@ def test_3d_bubble_conservation_and_symmetry():
 def test_3d_moist_bubble_conserves():
     """3-D MoistRisingBubble (spherical vapor bubble, MCE_rho + positive
     tracer -> exercises the 3-D FCT path)."""
-    from pam_jax.spam import IdealGasPottemp
+    from pam_tpu.spam import IdealGasPottemp
     tc = tcs.MoistRisingBubble()
     nx = ny = nz = 10
     zint = np.linspace(0.0, tc.Lz, nz + 1)
@@ -195,7 +195,7 @@ def test_3d_moist_bubble_conserves():
 def test_3d_supercell_ics_and_step():
     """3-D Supercell: ellipsoidal bubble + u(z) shear, near-hydrostatic
     columns stay stable over a few explicit acoustic steps."""
-    from pam_jax.spam import ConstantKappaVirtualPottemp
+    from pam_tpu.spam import ConstantKappaVirtualPottemp
     tc = tcs.Supercell()
     nx, ny, nz = 12, 12, 20
     zint = np.linspace(0.0, tc.Lz, nz + 1)

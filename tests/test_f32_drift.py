@@ -21,9 +21,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.spam import ExtrudedGeometry, VariableSet, SpamTendencies
-from pam_jax.spam import testcases as tcs
-from pam_jax.spam.thermo import IdealGasPottemp
+from pam_tpu.spam import ExtrudedGeometry, VariableSet, SpamTendencies
+from pam_tpu.spam import testcases as tcs
+from pam_tpu.spam.thermo import IdealGasPottemp
 
 
 def _bubble_drift(dtype, nsteps):
@@ -54,7 +54,7 @@ def _bubble_drift(dtype, nsteps):
 
 
 def _supercell_si_drift(dtype, nsteps):
-    from pam_jax.driver.mmf import setup_supercell_mmf
+    from pam_tpu.driver.mmf import setup_supercell_mmf
     drv, state = setup_supercell_mmf(nx=32, ny=1, nz=20, nens=1,
                                      xlen=64000.0, ylen=64000.0,
                                      zlen=20000.0, micro="kessler",
@@ -64,7 +64,7 @@ def _supercell_si_drift(dtype, nsteps):
     drv.apply_sponge = False
     dyc = drv.dycore
     dens, v, w = dyc.coupler_to_dynamics(state)
-    from pam_jax.spam import si as si_mod
+    from pam_tpu.spam import si as si_mod
 
     def body(carry, _):
         d, vv, ww = carry

@@ -62,7 +62,7 @@ def _fortran_compiler():
                     reason="no Fortran compiler in this image "
                            "(BASELINE.md environment constraint)")
 def test_fortran_test_compiles_and_runs(tmp_path):
-    from pam_jax.interface import _build_and_load
+    from pam_tpu.interface import _build_and_load
     _build_and_load()                    # compiles the .so on demand
     so = os.path.join(REPO, "native", "libpam_interface.so")
     fc = _fortran_compiler()

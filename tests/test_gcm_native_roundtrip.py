@@ -19,9 +19,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.interface import HostDataManager
-from pam_jax.driver.mmf import setup_supercell_mmf
-from pam_jax.modules import gcm_forcing
+from pam_tpu.interface import HostDataManager
+from pam_tpu.driver.mmf import setup_supercell_mmf
+from pam_tpu.modules import gcm_forcing
 
 FIELDS = ("temp", "water_vapor", "density_dry", "uvel", "vvel", "wvel",
           "cloud_liquid", "precip_liquid")

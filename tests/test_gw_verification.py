@@ -8,8 +8,8 @@ standalone/mmf_simplified/pam-c/gravitywave/convergence.py.
 import numpy as np
 import pytest
 
-from pam_jax.spam.testcases import GravityWave
-from pam_jax.spam.thermo import thermo_from_string
+from pam_tpu.spam.testcases import GravityWave
+from pam_tpu.spam.thermo import thermo_from_string
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_gravity_wave_si_error_vs_exact():
     """A coarse SI run stays close to the analytic linear solution
     (the single-level analog of convergence.py; thresholds ~2x the
     measured errors at this resolution)."""
-    from pam_jax.utils.gw_verification import run_level
+    from pam_tpu.utils.gw_verification import run_level
     errs, tc, geom = run_level(nx=150, nz=11, dt=20.0, timeend=600.0)
     # signal scales: drho ~ 4e-5, w ~ 6e-3, S ~ 0.1
     assert errs["rho"][1] < 4e-6      # L2
@@ -65,8 +65,8 @@ def test_gravity_wave_si_error_vs_exact():
 
 def test_gravity_wave_exact_diagnostics_shapes():
     import jax.numpy as jnp
-    from pam_jax.spam import ExtrudedGeometry
-    from pam_jax.spam.diagnostics import gravity_wave_exact
+    from pam_tpu.spam import ExtrudedGeometry
+    from pam_tpu.spam.diagnostics import gravity_wave_exact
     tc = GravityWave()
     th = thermo_from_string("idealgaspottemp")
     geom = ExtrudedGeometry.build(30, np.linspace(0.0, tc.Lz, 11), tc.Lx, 1,

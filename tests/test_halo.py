@@ -1,6 +1,6 @@
 """Explicit shard_map/ppermute halo-exchange layer tests.
 
-The explicit manual-sharding path (pam_jax.parallel.{comm,sharded_step})
+The explicit manual-sharding path (pam_tpu.parallel.{comm,sharded_step})
 must reproduce the unsharded computation exactly — our analog of the
 reference's single-process Exchange loopback contract
 (exchange.h:434 exchange_direct vs the MPI path)."""
@@ -14,9 +14,9 @@ from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 import pytest
 
-from pam_jax.parallel import comm
-from pam_jax.parallel.mesh import make_mesh
-from pam_jax.parallel.sharded_step import (sharded_crm_step,
+from pam_tpu.parallel import comm
+from pam_tpu.parallel.mesh import make_mesh
+from pam_tpu.parallel.sharded_step import (sharded_crm_step,
                                            sharded_dycore_step, state_specs)
 
 
@@ -93,8 +93,8 @@ def test_transpose_x_local_roundtrip():
 
 @pytest.fixture(scope="module")
 def mmf_awfl():
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(nx=16, ny=1, nz=12, nens=8,
                                      xlen=32000.0, ylen=64000.0,
                                      zlen=20000.0, micro="kessler",
@@ -106,8 +106,8 @@ def mmf_awfl():
 
 @pytest.fixture(scope="module")
 def mmf_spam_si():
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(nx=16, ny=1, nz=12, nens=8,
                                      xlen=32000.0, ylen=64000.0,
                                      zlen=20000.0, micro="kessler",
@@ -154,7 +154,7 @@ def test_explicit_sharded_step_composes_with_host_chunking(mmf_spam_si):
     unsharded full-ensemble step — proving host chunking and spatial
     sharding compose (on a pod: chunk ens over chips, x over ICI
     neighbors, chunks sequenced by the dispatch queue)."""
-    from pam_jax.driver.mmf import (setup_supercell_mmf, _split_ens,
+    from pam_tpu.driver.mmf import (setup_supercell_mmf, _split_ens,
                                     _join_ens)
     drv_full, state = mmf_spam_si
     ref = jax.jit(drv_full.crm_phys_step)(state)
@@ -288,8 +288,8 @@ def test_ens_only_sharded_p3_shoc_step_is_collective_free():
     minor component of a merged ncol axis made GSPMD all-gather every
     wrapper conversion (5 gathers, ~7.4 MB/step at the comm_volume config)
     — the (nz, ny*nx, nens) layout keeps nens its own shardable axis."""
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(nx=16, ny=1, nz=12, nens=8,
                                      xlen=32000.0, ylen=64000.0,
                                      zlen=20000.0, micro="p3", sgs="shoc",
@@ -357,8 +357,8 @@ def test_explicit_crm_step_p3_shoc_matches_unsharded():
     staged table contractions, the in-cloud-carrying sedimentation loop
     and SHOC's batched solves must all shard transparently (the physics
     wrappers derive shapes from the arrays, not the coupler dims)."""
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(nx=16, ny=1, nz=12, nens=8,
                                      xlen=32000.0, ylen=64000.0,
                                      zlen=20000.0, micro="p3", sgs="shoc",

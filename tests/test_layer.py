@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pam_jax.spam.layer import LayerModel, DoubleVortex, setup_double_vortex
+from pam_tpu.spam.layer import LayerModel, DoubleVortex, setup_double_vortex
 
 
 def _run(variant, ndens, nx=32, steps=50, dt=120.0):

@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pam_jax.driver.mmf import setup_supercell_mmf
-from pam_jax.driver.supercell_column import supercell_init_column
-from pam_jax.core.constants import DEFAULT_CONSTANTS
+from pam_tpu.driver.mmf import setup_supercell_mmf
+from pam_tpu.driver.supercell_column import supercell_init_column
+from pam_tpu.core.constants import DEFAULT_CONSTANTS
 import pytest
 
 
@@ -108,7 +108,7 @@ def test_coupled_reference_state_balance():
                                      dt_gcm=80.0, dt_crm_phys=20.0,
                                      dycore="spam", perturb_seeds=None)
     # strip the temperature perturbation: rebroadcast the pure column
-    from pam_jax.modules.broadcast import broadcast_initial_gcm_column
+    from pam_tpu.modules.broadcast import broadcast_initial_gcm_column
     state = broadcast_initial_gcm_column(drv.coupler, state)
     s = dict(state)
     for _ in range(3):
@@ -122,7 +122,7 @@ def test_mmf_stretched_vertical_grid():
     """MMF on a stretched (tanh vcoords) vertical grid, both dycores —
     the reference's vcoords-file path (driver.cpp:135-170). Regression:
     quadrature rounding at z=0 must not NaN the supercell sounding."""
-    from pam_jax.utils.vertical_levels import tanh_levels
+    from pam_tpu.utils.vertical_levels import tanh_levels
     zint = tanh_levels(20, 0.0, 20000.0)
     for dyc in ("awfl", "spam"):
         drv, state = setup_supercell_mmf(nx=16, ny=1, nz=20, nens=1,
@@ -144,8 +144,8 @@ def test_kessler_ens_chunked_matches_global_when_trivial():
     documented in KesslerMicro: each chunk's sub-cycle count is its own,
     as each CRM's would be outside the batched implementation."""
     import dataclasses
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
 
     drv, state = setup_supercell_mmf(nx=8, ny=1, nz=12, nens=4,
                                      xlen=16000.0, ylen=64000.0,
@@ -179,8 +179,8 @@ def test_crm_step_ens_microbatched_matches_full():
     nothing except Kessler's batched rainsplit min (per-chunk). With
     micro='none' the equality is exact; with kessler on an x-uniform
     ensemble the chunk minima coincide and it is exact too."""
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
 
     # (micro="none" is not valid for the coupled SPAM varset — it
     # requires the moist tracers; kessler with qr=0 has rainsplit=1 in
@@ -254,7 +254,7 @@ def test_standalone_mmf_yaml_end_to_end(tmp_path):
     config parse -> setup -> MmfDriver.run (per-CRM-step dispatch, round
     5) -> NetCDF writer + callback cadence (driver.cpp:221-272)."""
     import yaml
-    from pam_jax.driver import standalone
+    from pam_tpu.driver import standalone
 
     cfg = dict(sim_time=160, crm_nx=8, crm_ny=1, crm_nz=8, nens=2,
                xlen=16000.0, ylen=64000.0, zlen=20000.0, vcoords="uniform",

@@ -9,7 +9,7 @@ import numpy as np
 import jax
 import pytest
 
-from pam_jax.driver.mmf import setup_supercell_mmf
+from pam_tpu.driver.mmf import setup_supercell_mmf
 
 
 def test_mmf_p3_shoc_small_default():

@@ -9,16 +9,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pam_jax.core import Coupler
-from pam_jax.core.coupler import hmean
-from pam_jax.modules import (sponge_layer, perturb_temperature,
+from pam_tpu.core import Coupler
+from pam_tpu.core.coupler import hmean
+from pam_tpu.modules import (sponge_layer, perturb_temperature,
                              saturation_adjustment, fill_holes,
                              compute_adjusted_state,
                              broadcast_initial_gcm_column,
                              surface_friction_init, compute_surface_friction,
                              compute_gcm_forcing_tendencies,
                              apply_gcm_forcing_tendencies)
-from pam_jax.physics import kessler
+from pam_tpu.physics import kessler
 
 
 def make_cpl(nx=8, ny=1, nz=12, nens=2, micro=True):
@@ -85,7 +85,7 @@ def test_saturation_adjustment_converges():
     rv, rc, t = compute_adjusted_state(rho_d + rho_v, rho_d, rho_v, rho_c,
                                        temp, 461.0, 1003.0, 1859.0, 4188.0)
     assert float(rc[0]) > 0 and float(t[0]) > 285.0
-    from pam_jax.modules.saturation import saturation_vapor_pressure
+    from pam_tpu.modules.saturation import saturation_vapor_pressure
     pv = float(rv[0] * 461.0 * t[0])
     svp = float(saturation_vapor_pressure(t[0]))
     assert abs(pv - svp) / svp < 1e-4
@@ -194,7 +194,7 @@ def test_kessler_condensation_and_conservation():
 def test_vertical_interp_cells_to_edges():
     """WENO cells->edges: exact for smooth quadratics on stretched grids,
     respects BC_ZERO_VALUE (ref: pam_core/vertical_interp.h)."""
-    from pam_jax.core import vinterp
+    from pam_tpu.core import vinterp
     rng = np.random.default_rng(0)
     nz = 24
     zint = np.concatenate([[0.0], np.cumsum(50.0 + 40.0 * rng.random(nz))])
@@ -224,7 +224,7 @@ def test_vertical_interp_cells_to_edges():
 def test_forced_radiation_applies_enthalpy_tendency():
     """Forced radiation heats each CRM column by the coarse-cell tendency
     (ref: physics/radiation/forced/radiation.h:40-44)."""
-    from pam_jax.physics import radiation
+    from pam_tpu.physics import radiation
     cpl = make_cpl(nx=8, micro=False)
     cpl = radiation.register(cpl, rad_nx=2, rad_ny=1)
     rng = np.random.default_rng(7)

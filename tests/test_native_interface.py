@@ -5,7 +5,7 @@ fortran_test.F90 exercised through the same C ABI)."""
 import numpy as np
 import pytest
 
-from pam_jax.interface import HostDataManager
+from pam_tpu.interface import HostDataManager
 
 
 @pytest.fixture()
@@ -127,7 +127,7 @@ def test_c_abi_driver_full_surface(tmp_path):
     generated Fortran bindings call (no Fortran compiler in this image)."""
     import os
     import subprocess
-    from pam_jax import interface as iface
+    from pam_tpu import interface as iface
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     iface._build_and_load()
     so = os.path.join(root, "native", "libpam_interface.so")

@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.core import Coupler
-from pam_jax.physics import p3
-from pam_jax.physics.p3 import tables as tbl
-from pam_jax.physics.p3.main import (murphy_koop_svp, qv_sat, p3_main,
+from pam_tpu.core import Coupler
+from pam_tpu.physics import p3
+from pam_tpu.physics.p3 import tables as tbl
+from pam_tpu.physics.p3.main import (murphy_koop_svp, qv_sat, p3_main,
                                      cloud_dsd, rain_dsd)
-from pam_jax.physics.p3 import sedimentation as sed
-from pam_jax.physics.p3.constants import CONST
+from pam_tpu.physics.p3 import sedimentation as sed
+from pam_tpu.physics.p3.constants import CONST
 
 
 def test_tables_load_and_interpolate():
@@ -209,7 +209,7 @@ def test_p3_wrapper_roundtrip():
 def test_combined_sedimentation_matches_separate():
     """The fused single-while_loop sedimentation must reproduce the three
     per-species adaptive loops (zero-length substeps are exact no-ops)."""
-    from pam_jax.physics.p3 import sedimentation as sed
+    from pam_tpu.physics.p3 import sedimentation as sed
     rng = np.random.default_rng(2)
     ncol, nz = 16, 40
     f = lambda s=1.0: jnp.asarray(s * rng.random((nz, ncol)))
@@ -242,7 +242,7 @@ def test_combined_sedimentation_divergent_substeps():
     being active, so those extra substeps are exact no-ops; the remaining
     tolerance covers only cross-program FMA-contraction differences (the
     separate and fused loops are distinct XLA programs)."""
-    from pam_jax.physics.p3 import sedimentation as sed
+    from pam_tpu.physics.p3 import sedimentation as sed
     rng = np.random.default_rng(7)
     ncol, nz = 16, 40
     f = lambda s=1.0: jnp.asarray(s * rng.random((nz, ncol)))

@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.physics.p3 import main as p3m
+from pam_tpu.physics.p3 import main as p3m
 import p3_oracle as orc
 
 

@@ -3,7 +3,7 @@ Fortran (VERDICT r1 item 4, adapted: this image has NO Fortran compiler —
 `which gfortran` is empty, only libgfortran runtime is present — so instead
 of executing micro_p3.F90/shoc.F90 for golden columns, the oracles below
 are FRESH numpy transliterations made directly from the Fortran sources
-(file:line cited per test), written independently of pam_jax's JAX port.
+(file:line cited per test), written independently of pam_tpu's JAX port.
 A silent factor error in the port fails these even though both derive from
 the same paper formulas.
 
@@ -19,9 +19,9 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from pam_jax.physics.p3 import main as p3m
-from pam_jax.physics.sgs.shoc import main as shm
-from pam_jax.physics.sgs.shoc.constants import CONST as SHC
+from pam_tpu.physics.p3 import main as p3m
+from pam_tpu.physics.sgs.shoc import main as shm
+from pam_tpu.physics.sgs.shoc.constants import CONST as SHC
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +93,7 @@ def test_cloud_dsd_matches_fortran_oracle():
 
 
 def test_rain_dsd_matches_fortran_oracle():
-    from pam_jax.physics.p3.main import MU_R_CONSTANT
+    from pam_tpu.physics.p3.main import MU_R_CONSTANT
     rng = np.random.RandomState(1)
     qrs = 10 ** rng.uniform(-9, -2.2, 40)
     nrs = 10 ** rng.uniform(1, 7, 40)
@@ -236,7 +236,7 @@ def test_shoc_tke_chain_matches_fortran_oracle():
 
 # ---------------------------------------------------------------------------
 # Table interpolation: algebraic-identity tolerance (VERDICT r3 item 8).
-# The hat-weight contraction (pam_jax/physics/p3/tables.py) claims EXACT
+# The hat-weight contraction (pam_tpu/physics/p3/tables.py) claims EXACT
 # algebraic equivalence to the reference's nested scalar lerps
 # (access_lookup_table, micro_p3.F90:1508-1615) — so it is held to 1e-12,
 # not the 2e-6 mask-reassociation budget of the process chains.
@@ -244,7 +244,7 @@ def test_shoc_tke_chain_matches_fortran_oracle():
 
 def test_table_contractions_match_scalar_lerps_tightly():
     import p3_oracle as orc
-    from pam_jax.physics.p3 import tables as tbl
+    from pam_tpu.physics.p3 import tables as tbl
 
     ice_tab, coll_tab = (np.asarray(a) for a in tbl.load_ice_tables())
     vn_t, vm_t, revap_t = (np.asarray(a) for a in tbl.build_rain_tables())

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from pam_jax.utils import plotting as plo
+from pam_tpu.utils import plotting as plo
 
 
 def test_running_mean():

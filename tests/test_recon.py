@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.ops import recon_matrices as rm
-from pam_jax.ops import weno
+from pam_tpu.ops import recon_matrices as rm
+from pam_tpu.ops import weno
 
 
 def test_gll_matches_reference_tables():

@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.driver.mmf import setup_supercell_mmf
-from pam_jax.modules import gcm_forcing
-from pam_jax.parallel.mesh import make_mesh, state_sharding
+from pam_tpu.driver.mmf import setup_supercell_mmf
+from pam_tpu.modules import gcm_forcing
+from pam_tpu.parallel.mesh import make_mesh, state_sharding
 
 
 @pytest.fixture(scope="module")

@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.core import Coupler
-from pam_jax.physics import kessler
-from pam_jax.physics.sgs import shoc
-from pam_jax.physics.sgs.shoc.main import (shoc_main, linear_interp,
+from pam_tpu.core import Coupler
+from pam_tpu.physics import kessler
+from pam_tpu.physics.sgs import shoc
+from pam_tpu.physics.sgs.shoc.main import (shoc_main, linear_interp,
                                            _thomas, vd_shoc_matrix,
                                            shoc_length, pblintd,
                                            shoc_assumed_pdf, shoc_grid)
-from pam_jax.physics.sgs.shoc.constants import CONST as SC
+from pam_tpu.physics.sgs.shoc.constants import CONST as SC
 
 
 def _grid(nz=40, ztop=10000.0):
@@ -58,8 +58,8 @@ def test_thomas_solves_tridiagonal():
 def test_solve_shared_matches_per_field_thomas():
     """The stacked solve (Thomas and PCR paths) must reproduce the
     per-field Thomas used by the Fortran oracle runs."""
-    from pam_jax.physics.sgs.shoc.main import _solve_shared
-    import pam_jax.ops.tridiag as tri
+    from pam_tpu.physics.sgs.shoc.main import _solve_shared
+    import pam_tpu.ops.tridiag as tri
     rng = np.random.default_rng(1)
     ncol, n, ntr = 5, 50, 3
     du = jnp.asarray(-0.2 * rng.random((n, ncol))).at[-1].set(0.0)
@@ -71,16 +71,41 @@ def test_solve_shared_matches_per_field_thomas():
     ref_tr = jax.vmap(lambda t: _thomas(du, dl, d0, t), in_axes=-1,
                       out_axes=-1)(tr)
     for mode in ("thomas", "pcr"):
-        old = tri._TRIDIAG_MODE
-        tri._TRIDIAG_MODE = mode
-        try:
+        with tri.solver(mode):
             out = _solve_shared(du, dl, d0, rhs, tr)
-        finally:
-            tri._TRIDIAG_MODE = old
         tol = 1e-12 if mode == "thomas" else 1e-7
         for a, b in zip(ref, out[:3]):
             assert np.allclose(np.asarray(a), np.asarray(b), atol=tol)
         assert np.allclose(np.asarray(ref_tr), np.asarray(out[3]), atol=tol)
+
+
+def test_tridiag_auto_choice_follows_placement(monkeypatch):
+    """auto picks Thomas for work placed on the CPU and PCR elsewhere,
+    also while tracing, where the operand is a tracer with no device:
+    ``jax.default_device`` then decides, and only without it the default
+    backend. ``solver`` overrides both."""
+    import pam_tpu.ops.tridiag as tri
+    seen = []
+
+    def probe(x):
+        seen.append(tri.use_pcr(x))
+        return x + 1.0
+
+    x = jnp.ones(3)
+    monkeypatch.setattr(tri.jax, "default_backend", lambda: "gpu")
+    with tri.solver("auto"):
+        assert not tri.use_pcr(x)           # a concrete array on the CPU
+        jax.jit(probe)(x)                   # traced, backend "gpu"
+        with jax.default_device(jax.devices("cpu")[0]):
+            jax.jit(lambda y: probe(y) * 2.0)(x)  # traced, placed on CPU
+        with tri.solver("thomas"):
+            assert not tri.use_pcr(x)
+        with tri.solver("pcr"):
+            assert tri.use_pcr(x)
+    assert seen == [True, False]
+    with pytest.raises(ValueError):
+        with tri.solver("lu"):
+            pass
 
 
 def test_implicit_diffusion_conserves_and_smooths():
@@ -97,7 +122,7 @@ def test_implicit_diffusion_conserves_and_smooths():
     tkh = jnp.full((30, ncol), 50.0)
     rng = np.random.default_rng(1)
     field = b(290.0 + rng.standard_normal(30))
-    from pam_jax.physics.sgs.shoc.main import update_prognostics_implicit
+    from pam_tpu.physics.sgs.shoc.main import update_prognostics_implicit
     th, qw, tr, tke, u, v = update_prognostics_implicit(
         60.0, dz_zt, dz_zi, rho_zt, b(zt), b(zi), tkh, tkh,
         jnp.zeros(ncol), jnp.zeros(ncol), jnp.zeros(ncol), jnp.zeros(ncol),
@@ -151,7 +176,7 @@ def test_assumed_pdf_saturated_column_condenses():
     p = 1e5 * np.exp(-zt / 8500.0)
     exner = (p / 1e5) ** (SC.rgas / SC.cp)
     T = 285.0 * np.ones(nz)
-    from pam_jax.physics.p3.main import qv_sat
+    from pam_tpu.physics.p3.main import qv_sat
     qs = np.asarray(qv_sat(jnp.asarray(T), jnp.asarray(p), False))
     thl = b(T / exner)
     qw = b(qs * 1.1)   # supersaturated everywhere

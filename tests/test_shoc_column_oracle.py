@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.physics.sgs.shoc import main as shm
+from pam_tpu.physics.sgs.shoc import main as shm
 import shoc_oracle as orc
 
 

@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.spam.geometry import ExtrudedGeometry
-from pam_jax.spam.thermo import IdealGasPottemp, ThermoConstants
-from pam_jax.spam.varset import VariableSet
-from pam_jax.spam.tendencies import SpamTendencies
-from pam_jax.spam.testcases import GravityWave, setup_testcase
-from pam_jax.spam import si
+from pam_tpu.spam.geometry import ExtrudedGeometry
+from pam_tpu.spam.thermo import IdealGasPottemp, ThermoConstants
+from pam_tpu.spam.varset import VariableSet
+from pam_tpu.spam.tendencies import SpamTendencies
+from pam_tpu.spam.testcases import GravityWave, setup_testcase
+from pam_tpu.spam import si
 
 
 def _setup(nx=40, nz=16, perturb=True):
@@ -108,8 +108,8 @@ def test_si_converges_to_explicit():
 
 def test_si_dycore_wrapper():
     """SpamDycore.with_si runs through the coupler-facing timestep."""
-    from pam_jax.core import Coupler
-    from pam_jax.spam.dycore import SpamDycore
+    from pam_tpu.core import Coupler
+    from pam_tpu.spam.dycore import SpamDycore
     tc = GravityWave()
     nz, nx = 16, 40
     cpl = Coupler(nz=nz, ny=1, nx=nx, nens=1, xlen=tc.Lx, ylen=tc.Lx,
@@ -182,8 +182,8 @@ def test_pressure_si_3d_bubble():
     """3-D SI: rising bubble on (x, y, z) at dt far beyond the acoustic
     limit — the ndims=2 SI configuration the reference only reaches through
     the pressure system."""
-    from pam_jax.spam.testcases import RisingBubble
-    from pam_jax.spam.extruded3d import Tendencies3D
+    from pam_tpu.spam.testcases import RisingBubble
+    from pam_tpu.spam.extruded3d import Tendencies3D
     tc = RisingBubble()
     nx = ny = 12
     nz = 12
@@ -203,7 +203,7 @@ def test_pressure_si_3d_bubble():
         refdens=J(ref["dens"]), ref_rho_pi=J(ref["rho_pi"]),
         ref_q_pi=J(ref["q_pi"]), ref_rho_di=J(ref["rho_di"]),
         ref_q_di=J(ref["q_di"]), ref_B=J(ref["B"]))
-    from pam_jax.spam.testcases import setup_testcase_3d
+    from pam_tpu.spam.testcases import setup_testcase_3d
     dens, v, w, geop = setup_testcase_3d(tc, geom, thermo)
     dt = 2.0   # acoustic limit ~ dz/cs = 125/347 ~ 0.36 s
     lin = si.CompressiblePressureLinearSystem.build(geom, thermo, vs, ref,
@@ -268,8 +268,8 @@ def test_pressure_gravity_stable_in_stratified_mmf_f32():
     pressure_gravity and velocity stay stable — the property the gravity
     variant exists for."""
     import jax
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(
         nx=33, ny=1, nz=50, nens=1, xlen=64000.0, ylen=64000.0,
         zlen=20000.0, micro="kessler", dt_gcm=900.0, dt_crm_phys=20.0,
@@ -290,7 +290,7 @@ def test_two_point_discrete_gradient_si():
     2-point-quadrature SI trajectory and conserve energy at least as well
     over a rising-bubble run."""
     import jax
-    from pam_jax.driver.mmf import setup_supercell_mmf
+    from pam_tpu.driver.mmf import setup_supercell_mmf
     kw = dict(nx=16, ny=1, nz=16, nens=1, xlen=32000.0, ylen=64000.0,
               zlen=20000.0, micro="kessler", dt_gcm=1e9, dt_crm_phys=20.0,
               dycore="spam")
@@ -301,7 +301,7 @@ def test_two_point_discrete_gradient_si():
     dq, dtp = drv_q.dycore, drv_tp.dycore
     dens, v, w = dq.coupler_to_dynamics(state)
 
-    from pam_jax.spam import si as si_mod
+    from pam_tpu.spam import si as si_mod
     step_q = jax.jit(lambda d, vv, ww: si_mod.si_step(
         dq.tend, dq.si_linsys, d, vv, ww, dq.geop, 20.0, 3, 2))
     step_tp = jax.jit(lambda d, vv, ww: si_mod.si_step(
@@ -327,7 +327,7 @@ def test_two_point_discrete_gradient_si():
 def test_pcr_matches_thomas():
     """Parallel cyclic reduction (ops/tridiag.py) == Thomas scan to
     roundoff on random diagonally-dominant complex systems."""
-    from pam_jax.spam.si import _pcr, _tridiag_real
+    from pam_tpu.spam.si import _pcr, _tridiag_real
     rng = np.random.RandomState(7)
     n, b1, b2 = 49, 4, 9
     L = rng.randn(b1, n, b2)
@@ -358,8 +358,8 @@ def test_si_monitored_residuals_decrease():
     residual norm must drop substantially across iterations, and the
     monitored step must equal the plain si_step."""
     import jax
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.spam import si as si_mod
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.spam import si as si_mod
     drv, state = setup_supercell_mmf(nx=16, ny=1, nz=12, nens=1,
                                      xlen=32000.0, ylen=64000.0,
                                      zlen=20000.0, micro="kessler",

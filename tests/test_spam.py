@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.spam import (ExtrudedGeometry, IdealGasPottemp, VariableSet,
+from pam_tpu.spam import (ExtrudedGeometry, IdealGasPottemp, VariableSet,
                           SpamTendencies)
-from pam_jax.spam import operators as op
-from pam_jax.spam import testcases as tcs
+from pam_tpu.spam import operators as op
+from pam_tpu.spam import testcases as tcs
 
 
 def make_bubble(nx=20, nz=15, nens=1, dtype=jnp.float64):
@@ -118,11 +118,11 @@ def test_spam_coupled_dycore_roundtrip_and_step():
     """Coupler conversions invert each other; a coupled MMF-style step on the
     supercell column stays stable (analog of the reference coupled config:
     MCE_rho + ConstantKappa_VirtualPottemp)."""
-    from pam_jax.core import Coupler
-    from pam_jax.spam import SpamDycore
-    from pam_jax.driver.supercell_column import initialize_from_supercell_column
-    from pam_jax.modules.broadcast import broadcast_initial_gcm_column
-    from pam_jax.physics import kessler
+    from pam_tpu.core import Coupler
+    from pam_tpu.spam import SpamDycore
+    from pam_tpu.driver.supercell_column import initialize_from_supercell_column
+    from pam_tpu.modules.broadcast import broadcast_initial_gcm_column
+    from pam_tpu.physics import kessler
 
     nx, nz = 16, 20
     cpl = Coupler(nz=nz, ny=1, nx=nx, nens=1, xlen=32000.0, ylen=64000.0,
@@ -157,7 +157,7 @@ def test_spam_coupled_dycore_roundtrip_and_step():
 def test_alternative_time_integrators_agree():
     """ssprk2/34, kgrk4, lsrk5 all advance the bubble consistently with
     ssprk3 at small dt (timesteppers/{SSPRK,KGRK,LSRK}.h)."""
-    from pam_jax.spam.timesteppers import STEPPERS
+    from pam_tpu.spam.timesteppers import STEPPERS
     _, _, _, _, tend, dens, v, w, geop = make_bubble(nx=20, nz=15)
     dt = 0.04
 
@@ -187,9 +187,9 @@ def test_variable_grid_vertical_recon_convergence():
     TransformMatrices_variable.h): per-level matrices restore high-order
     convergence that uniform tables lose on a stretched column."""
     import jax.numpy as jnp
-    from pam_jax.spam import tendencies as td
-    from pam_jax.spam.operators import mirror_iface
-    from pam_jax.ops import weno, recon_matrices as rm
+    from pam_tpu.spam import tendencies as td
+    from pam_tpu.spam.operators import mirror_iface
+    from pam_tpu.ops import weno, recon_matrices as rm
 
     def err_for(nz, use_var):
         s = np.linspace(0, 1, nz + 1)
@@ -222,9 +222,9 @@ def test_spam_stretched_grid_conserves():
     conservation and stable energy (the variable-grid recon path)."""
     import jax
     import jax.numpy as jnp
-    from pam_jax.spam import (ExtrudedGeometry, VariableSet, SpamTendencies)
-    from pam_jax.spam import testcases as tcs
-    from pam_jax.spam.thermo import IdealGasPottemp
+    from pam_tpu.spam import (ExtrudedGeometry, VariableSet, SpamTendencies)
+    from pam_tpu.spam import testcases as tcs
+    from pam_tpu.spam.thermo import IdealGasPottemp
 
     tc = tcs.RisingBubble()
     nz = 16

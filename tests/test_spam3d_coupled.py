@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.driver.mmf import setup_supercell_mmf
-from pam_jax.modules import gcm_forcing
+from pam_tpu.driver.mmf import setup_supercell_mmf
+from pam_tpu.modules import gcm_forcing
 
 
 def _tile_y(state, ny):

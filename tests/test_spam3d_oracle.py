@@ -1,6 +1,6 @@
 """3-D (ndims=2) SPAM tendencies oracle test (VERDICT r4 item 3a): one
 genuinely y-VARYING compute_rhs evaluation of the port
-(pam_jax.spam.extruded3d.Tendencies3D) vs the scalar transliteration of
+(pam_tpu.spam.extruded3d.Tendencies3D) vs the scalar transliteration of
 the reference's ndims=2 kernels (tests/spam3d_oracle.py) at f64
 rtol 1e-10.
 
@@ -16,13 +16,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.spam import si
-from pam_jax.spam.geometry import ExtrudedGeometry
-from pam_jax.spam.thermo import IdealGasPottemp
-from pam_jax.spam.varset import VariableSet
-from pam_jax.spam.testcases import RisingBubble, setup_testcase_3d
-from pam_jax.spam.extruded3d import Tendencies3D
-from pam_jax.ops import recon_matrices as rm
+from pam_tpu.spam import si
+from pam_tpu.spam.geometry import ExtrudedGeometry
+from pam_tpu.spam.thermo import IdealGasPottemp
+from pam_tpu.spam.varset import VariableSet
+from pam_tpu.spam.testcases import RisingBubble, setup_testcase_3d
+from pam_tpu.spam.extruded3d import Tendencies3D
+from pam_tpu.ops import recon_matrices as rm
 
 import spam3d_oracle as orc3
 

@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pam_jax.spam import (ExtrudedGeometry, VariableSet, SpamTendencies)
-from pam_jax.spam import testcases as tcs
-from pam_jax.spam.thermo import (IdealGasPottemp, IdealGasEntropy,
+from pam_tpu.spam import (ExtrudedGeometry, VariableSet, SpamTendencies)
+from pam_tpu.spam import testcases as tcs
+from pam_tpu.spam.thermo import (IdealGasPottemp, IdealGasEntropy,
                                  ThermoNone, thermo_from_string)
 
 
@@ -128,7 +128,7 @@ def test_moist_anelastic_man():
     """MAN (moist anelastic) via the driver surface: conserves mass/energy,
     keeps the anelastic constraint (ref: Hamiltonian_MAN_Hs,
     anelastic.h:163-340)."""
-    from pam_jax.driver.standalone import run_idealized
+    from pam_tpu.driver.standalone import run_idealized
     cfg = dict(init_data="moistrisingbubble", crm_nx=12, crm_nz=12,
                sim_time=0.5, idealized=True, hamil="man", dtcrm=0.05)
     dens, v, w = run_idealized(cfg, verbose=False)
@@ -138,7 +138,7 @@ def test_moist_anelastic_man():
 
 
 def test_bickley_jet_runs():
-    from pam_jax.spam.layer import LayerModel, BickleyJet, setup_double_vortex
+    from pam_tpu.spam.layer import LayerModel, BickleyJet, setup_double_vortex
     tc = BickleyJet()
     m = LayerModel(nx=32, ny=32, nens=1, Lx=tc.Lx, Ly=tc.Ly, g=tc.g,
                    variant="swe", ndens=1)
@@ -159,7 +159,7 @@ def test_bickley_jet_runs():
 def test_supercell_column_build():
     """Supercell special init (extrudedmodel.h:7148-7224): hydrostatic
     moist column via fixed-point iteration; physical profiles."""
-    from pam_jax.spam.thermo import ConstantKappaVirtualPottemp
+    from pam_tpu.spam.thermo import ConstantKappaVirtualPottemp
     tc = tcs.Supercell()
     thermo = ConstantKappaVirtualPottemp(cst=tc.thermo_constants())
     geom = ExtrudedGeometry.build(8, np.linspace(0.0, tc.Lz, 41), tc.Lx, 1)
@@ -178,7 +178,7 @@ def test_supercell_column_build():
 def test_supercell_si_run_conserves():
     """Supercell + SI integrator: exact mass conservation, bounded energy
     drift, stable updraft growth from the bubble."""
-    from pam_jax.driver.standalone import run_idealized
+    from pam_tpu.driver.standalone import run_idealized
     cfg = dict(init_data="supercell", crm_nx=16, crm_nz=16, sim_time=100.0,
                tstype="si", dtcrm=10.0, out_prefix=None)
     dens, v, w = run_idealized(cfg, verbose=False)
@@ -190,7 +190,7 @@ def test_unimplemented_thermo_stubs():
     """The reference declares ConstantKappa_Entropy / Unapprox_* with every
     method commented out (thermo.h:482-660); our registry mirrors that."""
     import pytest
-    from pam_jax.spam.thermo import thermo_from_string
+    from pam_tpu.spam.thermo import thermo_from_string
     for name in ("constkappaentropy", "unapproxpottemp", "unapproxentropy"):
         th = thermo_from_string(name)
         with pytest.raises(NotImplementedError):
@@ -202,7 +202,7 @@ def test_cfv_and_tanh_numerics_options():
     """RECONSTRUCTION_TYPE::CFV and UPWIND_TYPE::TANH (common.h:72-111,
     recon.h:326-424): stable, and near the WENOFUNC/HEAVISIDE defaults on a
     smooth field."""
-    from pam_jax.driver.standalone import run_idealized
+    from pam_tpu.driver.standalone import run_idealized
     base = dict(init_data="risingbubble", crm_nx=16, crm_nz=16, sim_time=3.0,
                 tstype="ssprk3", out_prefix=None)
     ref, _, _ = run_idealized(base, verbose=False)
@@ -217,7 +217,7 @@ def test_cfv_and_tanh_numerics_options():
 
 def test_standalone_driver_3d_bubble():
     """The standalone YAML driver's crm_ny>1 branch (3-D idealized runs)."""
-    from pam_jax.driver.standalone import run_idealized
+    from pam_tpu.driver.standalone import run_idealized
     cfg = dict(idealized=True, init_data="risingbubble", crm_nx=10,
                crm_ny=8, crm_nz=10, nens=1, sim_time=0.6, tstype="ssprk3",
                dtcrm=0.15, stat_freq=0.3)
@@ -229,7 +229,7 @@ def test_standalone_driver_3d_bubble():
 
 @pytest.mark.slow
 def test_standalone_driver_3d_supercell_si():
-    from pam_jax.driver.standalone import run_idealized
+    from pam_tpu.driver.standalone import run_idealized
     cfg = dict(idealized=True, init_data="supercell", crm_nx=10, crm_ny=8,
                crm_nz=16, nens=1, sim_time=20.0, tstype="si", dtcrm=10.0,
                linear_system="pressure_gravity", stat_freq=10.0)

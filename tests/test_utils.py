@@ -6,11 +6,11 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from pam_jax.core import Coupler
-from pam_jax.utils import checkpoint as ckpt
-from pam_jax.utils import observe
-from pam_jax.utils import vertical_levels as vl
-from pam_jax.modules import averaging
+from pam_tpu.core import Coupler
+from pam_tpu.utils import checkpoint as ckpt
+from pam_tpu.utils import observe
+from pam_tpu.utils import vertical_levels as vl
+from pam_tpu.modules import averaging
 
 
 def _state(nens=2, nz=4, ny=1, nx=6):
@@ -116,7 +116,7 @@ def test_vcoords_netcdf_roundtrip(tmp_path):
     path = os.path.join(tmp_path, "vcoords.nc")
     zint = vl.generate("tanh", nlev=16, ztop=2000.0)
     vl.save_netcdf(path, zint)
-    from pam_jax.driver.standalone import build_zint
+    from pam_tpu.driver.standalone import build_zint
     got = build_zint({"vcoords": path})
     np.testing.assert_allclose(got, zint)
 
@@ -126,8 +126,8 @@ def test_hdf5_writer_roundtrip(tmp_path):
     write two snapshots, read back, compare."""
     import h5py
     import jax.numpy as jnp
-    from pam_jax.core.coupler import Coupler
-    from pam_jax.io.output import make_writer
+    from pam_tpu.core.coupler import Coupler
+    from pam_tpu.io.output import make_writer
     cpl = Coupler(nz=4, ny=1, nx=6, nens=2, xlen=6000.0, ylen=1000.0,
                   dtype=jnp.float64)
     cpl = cpl.add_tracer("water_vapor")
@@ -148,7 +148,7 @@ def test_hdf5_writer_roundtrip(tmp_path):
 def test_orbax_checkpoint_roundtrip(tmp_path):
     """orbax checkpoint path (previously untested — VERDICT r1 'weak')."""
     import jax.numpy as jnp
-    from pam_jax.utils import checkpoint as ckpt
+    from pam_tpu.utils import checkpoint as ckpt
     state = {"a": jnp.arange(6.0).reshape(2, 3), "b": jnp.ones((4,))}
     path = str(tmp_path / "ck")
     try:
@@ -168,8 +168,8 @@ def test_writer_staggered_fields_and_none_backend(tmp_path):
     import h5py
     import jax.numpy as jnp
     from scipy.io import netcdf_file
-    from pam_jax.core.coupler import Coupler
-    from pam_jax.io.output import make_writer
+    from pam_tpu.core.coupler import Coupler
+    from pam_tpu.io.output import make_writer
     cpl = Coupler(nz=3, ny=1, nx=4, nens=2, xlen=4000.0, ylen=1000.0,
                   dtype=jnp.float64)
     cpl = cpl.add_tracer("water_vapor")
@@ -197,7 +197,7 @@ def test_convert_output_roundtrip_preserves_record_axis(tmp_path):
     schema (appendable record variables)."""
     import h5py
     from scipy.io import netcdf_file
-    from pam_jax.utils import convert_output
+    from pam_tpu.utils import convert_output
     src = str(tmp_path / "a.nc")
     f = netcdf_file(src, "w")
     f.createDimension("t", None)
@@ -228,9 +228,9 @@ def test_convert_output_h5_to_nc(tmp_path):
     utils/convert_to_netcdf4.py)."""
     import jax.numpy as jnp
     from scipy.io import netcdf_file
-    from pam_jax.core.coupler import Coupler
-    from pam_jax.io.output import make_writer
-    from pam_jax.utils import convert_output
+    from pam_tpu.core.coupler import Coupler
+    from pam_tpu.io.output import make_writer
+    from pam_tpu.utils import convert_output
     cpl = Coupler(nz=3, ny=1, nx=4, nens=2, xlen=4000.0, ylen=1000.0,
                   dtype=jnp.float64)
     cpl = cpl.add_tracer("water_vapor")

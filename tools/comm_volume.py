@@ -3,7 +3,7 @@
 Compiles the SPAM+SI (and AWFL) CRM physics step at 1/2/4/8-way x-sharding
 on the virtual CPU device mesh, and reports, from the compiled HLO, the
 count and output bytes of every collective op — for BOTH the explicit
-shard_map/ppermute path (pam_jax.parallel.sharded_step) and the GSPMD-auto
+shard_map/ppermute path (pam_tpu.parallel.sharded_step) and the GSPMD-auto
 path (plain jit of sharded arrays). This is the measurement artifact asked
 for by BASELINE.json / VERDICT r1 item 1; results are recorded in
 SCALING.md.
@@ -77,10 +77,10 @@ def main():
     args = ap.parse_args()
 
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
-    from pam_jax.parallel.mesh import make_mesh
-    from pam_jax.parallel.sharded_step import sharded_crm_step
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
+    from pam_tpu.parallel.mesh import make_mesh
+    from pam_tpu.parallel.sharded_step import sharded_crm_step
 
     drv, state = setup_supercell_mmf(
         nx=args.nx, ny=args.ny, nz=args.nz, nens=args.nens,

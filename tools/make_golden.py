@@ -35,8 +35,8 @@ NSTEPS = 10
 def run_config(micro, sgs):
     import jax
     import jax.numpy as jnp
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     drv, state = setup_supercell_mmf(
         nx=16, ny=1, nz=12, nens=2, xlen=32000.0, ylen=64000.0,
         zlen=20000.0, micro=micro, sgs=sgs, dt_gcm=200.0, dt_crm_phys=20.0,

@@ -52,8 +52,8 @@ def timeit(step, state, n):
 
 
 def build(config):
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     if config == "slab":
         kw = dict(nx=64, ny=1, nz=40, nens=8, micro="kessler")
     elif config == "p3shoc":
@@ -77,8 +77,8 @@ def main():
     args = ap.parse_args()
 
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from pam_jax.parallel.mesh import make_mesh
-    from pam_jax.parallel.sharded_step import sharded_crm_step
+    from pam_tpu.parallel.mesh import make_mesh
+    from pam_tpu.parallel.sharded_step import sharded_crm_step
 
     n_phys = os.cpu_count()
     out = {"n_virtual_devices": 8, "n_physical_cores": n_phys,

@@ -86,9 +86,9 @@ def main():
     if jax.devices()[0].platform != "gpu":
         print("trace_ops: needs a GPU", file=sys.stderr)
         return 2
-    from pam_jax.compile_cache import enable_compile_cache
-    from pam_jax.driver.mmf import setup_supercell_mmf
-    from pam_jax.modules import gcm_forcing
+    from pam_tpu.compile_cache import enable_compile_cache
+    from pam_tpu.driver.mmf import setup_supercell_mmf
+    from pam_tpu.modules import gcm_forcing
     enable_compile_cache()
     drv, state = setup_supercell_mmf(
         nx=65, ny=1, nz=50, nens=args.nens, xlen=128000.0, ylen=64000.0,
